@@ -4,19 +4,31 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit) and torch's version.
-2. Builds the CUDA kernels from patchfusion_tpu_torch/csrc with nvcc.
+2. Builds the CUDA kernels from patchfusion_tpu_torch/csrc with nvcc (one
+   nvcc per source, all started together) and prints their ptxas lines.
 3. Holds each kernel against its plain PyTorch twin at the main-path shapes
-   (B = 1 and 4, output 392x518, low-res input 224x296) in float32 and
-   bfloat16, and times both with CUDA events.
+   and times kernel, twin and, where one exists, the one PyTorch call that
+   computes the same function, with CUDA events:
+   the head kernels at B = 1 and 4, output 392x518, low-res input 224x296,
+   float32 and bfloat16, channels-last and permuted-NCHW inputs; the
+   attention kernel at the vitl fine and coarse shapes (B = 4 and 1,
+   N = 1037, H = 16, Dh = 64) on strided qkv views, bf16_exp 0 and 1.
 4. Builds DA-vitl PatchFusion at full width from
    configs/patchfusion_depthanything/depthanything_vitl_patchfusion_u4k.py
    in bf16 with seeded random weights, answers three m1 requests and one m2
-   request on seeded 2160x3840 images, checks every depth map and that each
-   kernel ran 1 + 2*ceil(tiles/process_num) times per image.
-5. Runs the tiny config in bf16 on the card (with the kernels) against the
-   same weights in float32 on the CPU (plain twins), mode m1.
-6. Prints one JSON line with the kernels' launches, errors and times, then
-   {"ok": true, "device": {...}} as the last line.
+   request on seeded 2160x3840 images (the einsum attention), and checks
+   every depth map and each kernel's launches per image.
+5. The same model with PF_ATTN_IMPL=pallas (the attention kernel in all 24
+   blocks of both branches): three m1 requests on the same images, 120
+   attention launches per image, depth within 3e-2 of max of step 4's, and
+   one m2 request (336 launches).
+6. ConditionalLogBinomial.depth_fused (one clb_logbinomial_depth launch)
+   on the PF head of that model, on the head's own inputs of one m1 chunk,
+   against the head's two-kernel output and against the plain twin.
+7. Runs the tiny config in bf16 on the card (with the kernels, einsum and
+   pallas attention) against the same weights in float32 on the CPU.
+8. Prints one JSON line with the kernels' launches, errors, times and
+   bounds, then {"ok": true, "device": {...}} as the last line.
 
 Any failed check raises, so the script exits non-zero without the last line.
 It needs one CUDA card and nothing but this repository.
@@ -24,8 +36,10 @@ It needs one CUDA card and nothing but this repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -38,16 +52,37 @@ VITL_CONFIG = ("configs/patchfusion_depthanything/"
                "depthanything_vitl_patchfusion_u4k.py")
 RAW_SHAPE = (2160, 3840)
 PROCESS_NUM = 4
-KERNEL_SOURCES = {"clb_pt": "patchfusion_tpu_torch/csrc/clb_pt.cu",
-                  "logbinomial_depth":
-                      "patchfusion_tpu_torch/csrc/logbinomial_depth.cu"}
-REPLACES = {"clb_pt": "patchfusion_tpu/ops/pallas_head.py:490",
-            "logbinomial_depth": "patchfusion_tpu/ops/pallas_head.py:119"}
+KERNEL_SOURCES = {
+    "clb_pt": "patchfusion_tpu_torch/csrc/clb_pt.cu",
+    "logbinomial_depth": "patchfusion_tpu_torch/csrc/logbinomial_depth.cu",
+    "vit_attention": "patchfusion_tpu_torch/csrc/vit_attention.cu",
+    "clb_logbinomial_depth": "patchfusion_tpu_torch/csrc/clb_depth.cu"}
+REPLACES = {
+    "clb_pt": "patchfusion_tpu/ops/pallas_head.py:490",
+    "logbinomial_depth": "patchfusion_tpu/ops/pallas_head.py:119",
+    "vit_attention": "patchfusion_tpu/ops/pallas_attention.py:285; "
+                     "patchfusion_tpu/ops/pallas_attention.py:258; "
+                     "patchfusion_tpu/ops/pallas_attention.py:230",
+    "clb_logbinomial_depth": "patchfusion_tpu/ops/pallas_head.py:278"}
 # kernel vs plain twin: (tolerance on p and t, absolute; on depth, relative
 # to max |depth|). f32 differs only by float reassociation; bf16 also by the
 # kernel's bf16 rounding of the bottleneck and GELU (the twin is f32 inside).
 TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
-TINY_TOL = 3e-2  # bf16 card vs f32 CPU, relative to max |depth|
+# attention kernel vs twin, absolute on outputs of |o| <~ 1: the two round
+# P to bf16 against different maxima (running vs whole-row) and sum in
+# another order; a wrong key, row or column moves o by ~|o|
+ATTN_TOL = 1e-2
+# depth_fused vs the head's clb_pt + logbinomial_depth launches: the same
+# device bodies, relative to max |depth|
+FUSED_TOL = 1e-4
+PATH_TOL = 3e-2   # pallas vs einsum attention path, relative to max |depth|
+TINY_TOL = 3e-2   # bf16 card vs f32 CPU, relative to max |depth|
+# NVIDIA H100 SXM data-sheet peaks (dense): the least time a kernel's work
+# could take is the largest of its bytes, tensor-core FLOPs and other f32
+# operations over these rates
+HBM_BYTES_S = 3.35e12
+BF16_TC_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def tiny_config():
@@ -85,6 +120,78 @@ def check(cond: bool, msg: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# launch counts and bounds
+# ---------------------------------------------------------------------------
+
+def _count_dicts():
+    from patchfusion_tpu_torch.ops import fused_head, vit_attention
+    return (fused_head.LAUNCHES, vit_attention.LAUNCHES)
+
+
+def reset_counts() -> None:
+    for d in _count_dicts():
+        for name in d:
+            d[name] = 0
+
+
+def counts() -> dict:
+    out = {}
+    for d in _count_dicts():
+        out.update(d)
+    return out
+
+
+@contextlib.contextmanager
+def attn_impl(impl: str):
+    """PF_ATTN_IMPL set in this process for the block, restored after."""
+    old = os.environ.get("PF_ATTN_IMPL")
+    os.environ["PF_ATTN_IMPL"] = impl
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PF_ATTN_IMPL"]
+        else:
+            os.environ["PF_ATTN_IMPL"] = old
+
+
+def bound(nbytes: float, tc_flops: float = 0.0, f32_ops: float = 0.0):
+    """(bound_ms, bound_by): the largest of the bytes over HBM bandwidth,
+    the tensor-core FLOPs over the bf16 tensor-core peak and the other f32
+    operations over the f32 peak."""
+    times = {"bytes": nbytes / HBM_BYTES_S,
+             "operations": max(tc_flops / BF16_TC_FLOPS, f32_ops / F32_FLOPS)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def head_bounds(b, oh, ow, ih, iw, k, cin, cc, hid, itemsize):
+    """Bounds of the three head kernels for one input shape. Bytes: each
+    input read once, each output written once. Operations: the MLP's
+    products at the tensor-core rate with the condition projected at its
+    low resolution (the cheaper order), and per (pixel, bin) ~16 f32
+    operations of the log-binomial softmax, the centers' bilinear taps and
+    the weighted sum."""
+    hi, lo = b * oh * ow, b * ih * iw
+    mlp = 2 * hid * (cin * hi + cc * lo) + 2 * hid * 4 * hi
+    lb_ops = 16 * k * hi
+    return {
+        "clb_pt": bound(itemsize * (cin * hi + cc * lo) + 8 * hi, mlp),
+        "logbinomial_depth": bound(8 * hi + itemsize * k * lo + 4 * hi, 0,
+                                   lb_ops),
+        "clb_logbinomial_depth": bound(
+            itemsize * (cin * hi + (cc + k) * lo) + 4 * hi, mlp, lb_ops)}
+
+
+def attention_bound(b, n, h, dh):
+    """q, k, v read and o written in bf16; QK^T and PV at the tensor-core
+    rate; ~6 f32 operations per score (round, max, subtract, exp, round,
+    sum)."""
+    return bound(4 * b * n * h * dh * 2, 4 * b * h * n * n * dh,
+                 6 * b * h * n * n)
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -104,11 +211,11 @@ def phase_card():
 
 
 def phase_build():
-    from patchfusion_tpu_torch.ops import fused_head
+    from patchfusion_tpu_torch.ops import cuda_lib
 
     t0 = time.perf_counter()
-    lib = fused_head.build_kernels()
-    fused_head.load_kernels()
+    lib = cuda_lib.build_kernels()
+    cuda_lib.load_kernels()
     secs = time.perf_counter() - t0
     say(f"build: {secs:.1f} s -> {lib.relative_to(ROOT)}")
     log = (lib.parent / "nvcc.log").read_text()
@@ -144,14 +251,13 @@ def _nchw_view(x_nhwc_np, dtype, device):
     return t.permute(0, 2, 3, 1)
 
 
-def phase_kernels():
-    """Each kernel against its plain twin at the main-path shapes."""
+def _head_kernels(results):
+    """The three head kernels against their twins."""
     import torch
     from patchfusion_tpu_torch.ops import fused_head as fh
 
     dev = torch.device("cuda")
     oh, ow, ih, iw, k, cin, cc, hid = 392, 518, 224, 296, 64, 33, 128, 80
-    results = {}
     for b in (1, 4):
         rng = np.random.default_rng(b)
         p = rng.random((b, oh, ow), dtype=np.float32) * 0.98 + 0.01
@@ -169,6 +275,8 @@ def phase_kernels():
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             tol_pt, tol_depth = TOL[dname]
+            bounds = head_bounds(b, oh, ow, ih, iw, k, cin, cc, hid,
+                                 dtype.itemsize)
             for layout in ("nchw-view", "nhwc"):
                 if layout == "nhwc":
                     ct = torch.from_numpy(cent).to(dev, dtype)
@@ -204,6 +312,25 @@ def phase_kernels():
                       f"clb_pt {dname} B={b} {layout}: abs err {e_clb:.3g} "
                       f"> {tol_pt}")
                 crow = {"max_abs_err": e_clb}
+                # clb_logbinomial_depth, against its twin and against the
+                # two-kernel route it fuses
+                gd = fh.clb_logbinomial_depth(lt, cdt, ct, *wl)
+                rd = fh.clb_logbinomial_depth_plain(lt, cdt, ct, *wl)
+                two = fh.logbinomial_depth(*fh.clb_pt(lt, cdt, *wl), ct)
+                torch.cuda.synchronize()
+                e_d = (gd - rd).abs().max().item()
+                rel_d = e_d / rd.abs().max().item()
+                rel_two = ((gd - two).abs().max() / two.abs().max()).item()
+                check(bool(torch.isfinite(gd).all()),
+                      "clb_logbinomial_depth: non-finite output")
+                check(rel_d <= tol_depth,
+                      f"clb_logbinomial_depth {dname} B={b} {layout}: rel "
+                      f"err {rel_d:.3g} > {tol_depth}")
+                check(rel_two <= FUSED_TOL,
+                      f"clb_logbinomial_depth {dname} B={b} {layout}: "
+                      f"{rel_two:.3g} from clb_pt + logbinomial_depth")
+                frow = {"max_abs_err": e_d, "rel_err": rel_d,
+                        "rel_to_two_kernels": rel_two}
                 if layout == "nchw-view":
                     row["ms"] = _time_ms(
                         lambda: fh.logbinomial_depth(pt, tt, ct))
@@ -212,81 +339,259 @@ def phase_kernels():
                     crow["ms"] = _time_ms(lambda: fh.clb_pt(lt, cdt, *wl))
                     crow["plain_ms"] = _time_ms(
                         lambda: fh.clb_pt_plain(lt, cdt, *wl))
-                results[("logbinomial_depth", dname, b, layout)] = row
-                results[("clb_pt", dname, b, layout)] = crow
-                say(f"kernel logbinomial_depth {dname} B={b} {layout}: "
-                    + json.dumps(row))
-                say(f"kernel clb_pt {dname} B={b} {layout}: "
-                    + json.dumps(crow))
+                    frow["ms"] = _time_ms(
+                        lambda: fh.clb_logbinomial_depth(lt, cdt, ct, *wl))
+                    frow["plain_ms"] = _time_ms(
+                        lambda: fh.clb_logbinomial_depth_plain(lt, cdt, ct,
+                                                               *wl))
+                    frow["two_kernels_ms"] = _time_ms(
+                        lambda: fh.logbinomial_depth(
+                            *fh.clb_pt(lt, cdt, *wl), ct))
+                for name, r in (("logbinomial_depth", row), ("clb_pt", crow),
+                                ("clb_logbinomial_depth", frow)):
+                    r["bound_ms"], r["bound_by"] = bounds[name]
+                    r["library_ms"] = None
+                    results[(name, dname, b, layout)] = r
+                    say(f"kernel {name} {dname} B={b} {layout}: "
+                        + json.dumps(r))
+
+
+def _attention_kernel(results):
+    """The attention kernel against its twin on strided qkv views, with
+    scaled_dot_product_attention timed beside it as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from patchfusion_tpu_torch.ops import vit_attention as va
+
+    dev = torch.device("cuda")
+    n, h, dh = 1037, 16, 64
+    for b in (4, 1):
+        rng = np.random.default_rng(10 + b)
+        qkv = torch.from_numpy(rng.standard_normal(
+            (b, n, 3, h, dh), dtype=np.float32)).to(dev, torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        for bf16_exp in (1, 0):
+            def kernel():
+                if bf16_exp:
+                    return va.vit_attention(q, k, v)
+                return va.vit_attention_mxsum(q, k, v, bf16_exp=False)
+
+            got = kernel()
+            ref = va.vit_attention_plain(q, k, v, bool(bf16_exp))
+            torch.cuda.synchronize()
+            check(got.shape == ref.shape and got.dtype == torch.bfloat16,
+                  f"vit_attention: {got.shape} {got.dtype}")
+            check(bool(torch.isfinite(got).all()),
+                  "vit_attention: non-finite output")
+            err = (got.float() - ref.float()).abs().max().item()
+            check(err <= ATTN_TOL, f"vit_attention B={b} bf16_exp="
+                  f"{bf16_exp}: abs err {err:.3g} > {ATTN_TOL}")
+            row = {"max_abs_err": err,
+                   "max_abs_out": ref.float().abs().max().item(),
+                   "ms": _time_ms(kernel),
+                   "plain_ms": _time_ms(
+                       lambda: va.vit_attention_plain(q, k, v,
+                                                      bool(bf16_exp)))}
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            row["library_ms"] = _time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            row["bound_ms"], row["bound_by"] = attention_bound(b, n, h, dh)
+            results[("vit_attention", bf16_exp, b)] = row
+            say(f"kernel vit_attention B={b} N={n} H={h} Dh={dh} "
+                f"bf16_exp={bf16_exp}: " + json.dumps(row))
+
+
+def phase_kernels():
+    """Each kernel against its plain twin at the main-path shapes."""
+    results = {}
+    _head_kernels(results)
+    _attention_kernel(results)
     return results
 
 
-def phase_full_width():
-    """DA-vitl PatchFusion at 2160x3840 in bf16: three m1, one m2."""
+def build_vitl():
+    """DA-vitl PatchFusion at full width in bf16, seeded random weights."""
     import torch
     from patchfusion_tpu_torch.api import PatchFusion
     from patchfusion_tpu_torch.config import Config
-    from patchfusion_tpu_torch.ops import fused_head as fh
-    from patchfusion_tpu_torch.ops.resize import interpolate
 
     cfg = Config.fromfile(str(ROOT / VITL_CONFIG)).model.config.to_dict()
     t0 = time.perf_counter()
-    model = PatchFusion.from_config(cfg, device="cuda",
-                                    dtype=torch.bfloat16, seed=0)
+    model = PatchFusion.from_config(cfg, dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
     say(f"vitl build + seeded init: {time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in model.net.parameters()) / 1e6:.1f} M "
         "params")
-    tc = model.tile_cfg
-    check(tuple(tc.image_raw_shape) == RAW_SHAPE, "config raw shape")
-    expect_hw = tc.patch_reensemble_shape
+    check(next(model.net.parameters()).is_cuda,
+          "from_config did not build on the card by default")
+    check(tuple(model.tile_cfg.image_raw_shape) == RAW_SHAPE,
+          "config raw shape")
+    return model
+
+
+def _tiles(tc):
     ph, pw = tc.patch_raw_shape
     shifted = [(0, pw // 2), (ph // 2, 0), (ph // 2, pw // 2)]
-    n_tiles = {mode: sum(len(a) * len(b) for a, b in (
+    return {mode: sum(len(a) * len(b) for a, b in (
         tc.regular_origins(o) for o in [(0, 0)] + extra))
         for mode, extra in (("m1", []), ("m2", shifted))}
+
+
+def _images(model, seed):
+    """The seeded raw image and its process-resolution copy."""
+    import torch
+    from patchfusion_tpu_torch.ops.resize import interpolate
+
+    rng = np.random.default_rng(100 + seed)
+    hr = rng.random((*RAW_SHAPE, 3), dtype=np.float32)
+    with torch.no_grad():
+        lr = interpolate(torch.from_numpy(hr)[None],
+                         model.tile_cfg.patch_process_shape, mode="bilinear",
+                         align_corners=True).numpy()
+    return lr, hr
+
+
+def _request(model, mode, seed, want):
+    """One request; checks the depth and that each kernel launched `want`
+    times (dict name -> count). Returns (ms, depth)."""
+    import torch
+
+    lr, hr = _images(model, seed)
+    before = counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    depth = model.infer(lr, hr, cai_mode=mode, process_num=PROCESS_NUM)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    after = counts()
+    for name, n in want.items():
+        got = after[name] - before[name]
+        check(got == n, f"{mode}: {name} launched {got} times, expected {n}")
+    check(depth.shape == model.tile_cfg.patch_reensemble_shape,
+          f"{mode}: shape {depth.shape}")
+    check(bool(np.isfinite(depth).all()), f"{mode}: non-finite depth")
+    check(bool((depth > 0).all()), f"{mode}: non-positive depth")
+    say(f"request {mode} #{seed}: {ms:.1f} ms, shape {depth.shape}, "
+        f"range [{depth.min():.4g}, {depth.max():.4g}], launches {want}")
+    return ms, depth
+
+
+def _want(n_tiles, vit_blocks=(0, 0)):
+    """Launches per request: the head kernels once per metric-bins head
+    (the coarse head, then the fine and PF heads of every chunk), the
+    attention kernel once per ViT block of the coarse pass and of each
+    chunk's fine pass (vit_blocks: the two branches' depths, 0 with the
+    einsum attention), nothing else."""
+    chunks = math.ceil(n_tiles / PROCESS_NUM)
+    heads = 1 + 2 * chunks
+    return {"clb_pt": heads, "logbinomial_depth": heads,
+            "clb_logbinomial_depth": 0,
+            "vit_attention": vit_blocks[0] + chunks * vit_blocks[1]}
+
+
+def phase_full_width(model):
+    """DA-vitl at 2160x3840 in bf16, einsum attention: three m1, one m2."""
+    import torch
+
+    n_tiles = _tiles(model.tile_cfg)
     say(f"tiles per image: {n_tiles}")
-
-    def request(mode, seed):
-        rng = np.random.default_rng(100 + seed)
-        hr = rng.random((*RAW_SHAPE, 3), dtype=np.float32)
-        with torch.no_grad():
-            lr = interpolate(torch.from_numpy(hr)[None],
-                             tc.patch_process_shape, mode="bilinear",
-                             align_corners=True).numpy()
-        before = dict(fh.LAUNCHES)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        depth = model.infer(lr, hr, cai_mode=mode, process_num=PROCESS_NUM)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
-        want = 1 + 2 * math.ceil(n_tiles[mode] / PROCESS_NUM)
-        for name in fh.LAUNCHES:
-            got = fh.LAUNCHES[name] - before[name]
-            check(got == want, f"{mode}: {name} launched {got} times, "
-                  f"expected {want}")
-        check(depth.shape == expect_hw, f"{mode}: shape {depth.shape}")
-        check(bool(np.isfinite(depth).all()), f"{mode}: non-finite depth")
-        check(bool((depth > 0).all()), f"{mode}: non-positive depth")
-        say(f"request {mode} #{seed}: {ms:.1f} ms, shape {depth.shape}, "
-            f"range [{depth.min():.4g}, {depth.max():.4g}], "
-            f"launches/kernel {want}")
-        return ms
-
     torch.cuda.reset_peak_memory_stats()
-    for name in fh.LAUNCHES:
-        fh.LAUNCHES[name] = 0
-    m1 = [request("m1", i) for i in range(3)]
-    m2 = request("m2", 3)
-    launches = dict(fh.LAUNCHES)
+    reset_counts()
+    with attn_impl("einsum"):
+        m1 = [_request(model, "m1", i, _want(n_tiles["m1"]))
+              for i in range(3)]
+        m2, _ = _request(model, "m2", 3, _want(n_tiles["m2"]))
+    launches = counts()
     peak = torch.cuda.max_memory_allocated()
-    say(f"m1 latency: cold {m1[0]:.1f} ms, warm {m1[1]:.1f} / {m1[2]:.1f} "
-        f"ms; m2 latency {m2:.1f} ms; peak allocated {peak / 2**30:.2f} GiB")
-    return launches, {"m1_ms": m1, "m2_ms": m2, "peak_bytes": peak}
+    say(f"m1 latency: cold {m1[0][0]:.1f} ms, warm {m1[1][0]:.1f} / "
+        f"{m1[2][0]:.1f} ms; m2 latency {m2:.1f} ms; peak allocated "
+        f"{peak / 2**30:.2f} GiB")
+    return launches, [d for _, d in m1]
+
+
+def phase_pallas_path(model, einsum_depths):
+    """The same model and images with PF_ATTN_IMPL=pallas: every bf16
+    DINOv2 attention of both branches through the attention kernel."""
+    n_tiles = _tiles(model.tile_cfg)
+    blocks = [len(branch.core.core.pretrained.blocks)
+              for branch in (model.net.coarse_branch, model.net.fine_branch)]
+    want = _want(n_tiles["m1"], blocks)
+    reset_counts()
+    with attn_impl("pallas"):
+        runs = [_request(model, "m1", i, want) for i in range(3)]
+        m2, _ = _request(model, "m2", 3, _want(n_tiles["m2"], blocks))
+    launches = counts()
+    for (ms, depth), ref in zip(runs, einsum_depths):
+        rel = float(np.abs(depth - ref).max() / np.abs(ref).max())
+        say(f"pallas vs einsum attention m1: max|diff|/max|einsum| = "
+            f"{rel:.3g} (tolerance {PATH_TOL})")
+        check(rel <= PATH_TOL, f"pallas path differs by {rel:.3g}")
+    say(f"m1 latency with PF_ATTN_IMPL=pallas: first {runs[0][0]:.1f} ms, "
+        f"then {runs[1][0]:.1f} / {runs[2][0]:.1f} ms; m2 {m2:.1f} ms; "
+        f"{want['vit_attention']} attention launches per m1 image")
+    return launches
+
+
+def phase_depth_fused(model):
+    """depth_fused on the PF head's own module and inputs (the last chunk
+    of one m1 request), against the head's clb_pt + logbinomial_depth
+    output and against the plain twin."""
+    import torch
+    from patchfusion_tpu_torch.ops import fused_head as fh
+
+    net = model.net
+    seen = {}
+    head_forward = net.head_forward
+
+    def spy(x, x_blocks, last, rel_cond):
+        out = head_forward(x, x_blocks, last, rel_cond)
+        seen.update(last_cat=torch.cat([last, rel_cond.to(last.dtype)], 1),
+                    cond=out["b_embedding"], centers=out["bin_centers"],
+                    depth=out["metric_depth"])
+        return out
+
+    net.head_forward = spy
+    try:
+        with attn_impl("einsum"):
+            lr, hr = _images(model, 0)
+            model.infer(lr, hr, cai_mode="m1", process_num=PROCESS_NUM)
+    finally:
+        del net.head_forward
+    x_hi, cond, centers = seen["last_cat"], seen["cond"], seen["centers"]
+    say(f"PF head inputs: last_cat {tuple(x_hi.shape)}, b_embedding "
+        f"{tuple(cond.shape)}, bin_centers {tuple(centers.shape)}, "
+        f"{x_hi.dtype}")
+    clb = net.conditional_log_binomial
+    reset_counts()
+    with torch.no_grad():
+        got = clb.depth_fused(x_hi, cond, centers)
+    launches = counts()
+    check(launches["clb_logbinomial_depth"] == 1,
+          f"depth_fused launched {launches}")
+    with torch.no_grad():
+        w = clb.mlp_weights()
+        plain = fh.clb_logbinomial_depth_plain(
+            x_hi.permute(0, 2, 3, 1), cond.permute(0, 2, 3, 1),
+            centers.permute(0, 2, 3, 1), *w, clb.min_temp, clb.max_temp,
+            clb.p_eps)[:, None]
+    torch.cuda.synchronize()
+    two = seen["depth"]
+    check(got.shape == two.shape, f"depth_fused shape {got.shape}")
+    check(bool(torch.isfinite(got).all()), "depth_fused: non-finite")
+    rel_two = ((got - two).abs().max() / two.abs().max()).item()
+    rel_plain = ((got - plain).abs().max() / plain.abs().max()).item()
+    say(f"depth_fused on the vitl PF head: {rel_two:.3g} from its clb_pt + "
+        f"logbinomial_depth output (tolerance {FUSED_TOL}), {rel_plain:.3g} "
+        f"from the plain twin (tolerance {TOL['bfloat16'][1]})")
+    check(rel_two <= FUSED_TOL, f"depth_fused vs two kernels {rel_two:.3g}")
+    check(rel_plain <= TOL["bfloat16"][1],
+          f"depth_fused vs plain twin {rel_plain:.3g}")
+    return launches
 
 
 def phase_tiny():
-    """bf16 on the card (kernels) vs float32 on the CPU (plain twins)."""
+    """bf16 on the card (kernels; einsum and pallas attention) vs float32
+    on the CPU (plain twins)."""
     import torch
     from patchfusion_tpu_torch.api import PatchFusion
 
@@ -300,13 +605,19 @@ def phase_tiny():
     hr = rng.random((84, 112, 3), dtype=np.float32)
     lr = rng.random((1, 42, 56, 3), dtype=np.float32)
     ref = cpu.infer(lr, hr, cai_mode="m1", process_num=2)
-    got = gpu.infer(lr, hr, cai_mode="m1", process_num=2)
-    check(got.shape == ref.shape, f"tiny: shape {got.shape} vs {ref.shape}")
-    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
-    say(f"tiny m1 bf16 card vs f32 cpu: max|diff|/max|ref| = {rel:.3g} "
-        f"(tolerance {TINY_TOL})")
-    check(rel <= TINY_TOL, f"tiny config differs by {rel:.3g}")
-    return rel
+    for impl in ("einsum", "pallas"):
+        before = counts()["vit_attention"]
+        with attn_impl(impl):
+            got = gpu.infer(lr, hr, cai_mode="m1", process_num=2)
+        ran = counts()["vit_attention"] - before
+        check((ran > 0) == (impl == "pallas"),
+              f"tiny {impl}: {ran} attention launches")
+        check(got.shape == ref.shape,
+              f"tiny: shape {got.shape} vs {ref.shape}")
+        rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+        say(f"tiny m1 bf16 card ({impl} attention) vs f32 cpu: "
+            f"max|diff|/max|ref| = {rel:.3g} (tolerance {TINY_TOL})")
+        check(rel <= TINY_TOL, f"tiny config ({impl}) differs by {rel:.3g}")
 
 
 def main() -> int:
@@ -316,22 +627,40 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
+    t0 = time.perf_counter()
     phase_card()
     phase_build()
     kres = phase_kernels()
-    launches, _ = phase_full_width()
+    model = build_vitl()
+    main_launches, einsum_depths = phase_full_width(model)
+    pallas_launches = phase_pallas_path(model, einsum_depths)
+    fused_launches = phase_depth_fused(model)
+    del model
+    torch.cuda.empty_cache()
     phase_tiny()
-    for name in launches:
-        check(launches[name] > 0, f"{name} never ran on the main path")
+    launches = {"clb_pt": main_launches["clb_pt"],
+                "logbinomial_depth": main_launches["logbinomial_depth"],
+                "vit_attention": pallas_launches["vit_attention"],
+                "clb_logbinomial_depth":
+                    fused_launches["clb_logbinomial_depth"]}
+    for name, n in launches.items():
+        check(n > 0, f"{name} never ran on its path")
     kernels = []
-    for name in ("clb_pt", "logbinomial_depth"):
-        r = kres[(name, "bfloat16", 4, "nchw-view")]
+    for name in ("clb_pt", "logbinomial_depth", "vit_attention",
+                 "clb_logbinomial_depth"):
+        if name == "vit_attention":
+            r = kres[("vit_attention", 1, 4)]
+        else:
+            r = kres[(name, "bfloat16", 4, "nchw-view")]
         kernels.append({"name": name, "route": "cuda",
                         "source": KERNEL_SOURCES[name],
                         "replaces": REPLACES[name],
                         "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    say(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -83,11 +83,12 @@ class PatchFusion:
         self._engines: Dict[Tuple, PatchFusionInference] = {}
 
     @classmethod
-    def from_config(cls, config: Dict[str, Any], device="cpu",
+    def from_config(cls, config: Dict[str, Any], device="cuda",
                     dtype: torch.dtype = torch.float32, seed: int = 0,
                     process_num: int = 4) -> "PatchFusion":
         """Build from the reference `model.config` dict with seeded random
-        weights (drawn in float32, then cast to `dtype`)."""
+        weights (drawn in float32, then cast to `dtype`), on the card unless
+        the caller passes device="cpu"; raises where CUDA is missing."""
         net, tile_cfg = build_patchfusion(config, dtype=torch.float32,
                                           device=device)
         init_weights(net, seed)

@@ -34,23 +34,15 @@
 // model passes its NCHW tensors as permuted views: for each channel,
 // neighbouring threads (neighbouring x) read neighbouring addresses.
 // For bf16 inputs h and GELU(h) are rounded to bf16 and W2 is used in bf16
-// with f32 accumulation, as the TPU kernel does at the input dtype.
+// with f32 accumulation, as the TPU kernel does at the input dtype. The
+// per-pixel body is pf::clb_pixel (common.cuh), shared with
+// csrc/clb_depth.cu.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kHidden = 80;  // (33 + 128) // 2, fixed by the head's widths
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -61,17 +53,8 @@ clb_pt_kernel(const T* __restrict__ last, const T* __restrict__ cond,
               int OH, int OW, int IH, int IW, int Cin, int Cc,
               pf::Strides4 ls, pf::Strides4 cs, float p_eps) {
   extern __shared__ float smem[];
-  const int n_w1 = (Cin + Cc) * kHidden;
-  float* w1s = smem;               // (Cin + Cc, H)
-  float* b1s = w1s + n_w1;         // (H,)
-  float* w2s = b1s + kHidden;      // (H, 4), rounded through T
-  float* b2s = w2s + kHidden * 4;  // (4,)
-  for (int i = threadIdx.x; i < n_w1; i += blockDim.x) w1s[i] = w1[i];
-  for (int i = threadIdx.x; i < kHidden; i += blockDim.x) b1s[i] = b1[i];
-  for (int i = threadIdx.x; i < kHidden * 4; i += blockDim.x)
-    w2s[i] = pf::round_to<T>(w2[i]);
-  if (threadIdx.x < 4) b2s[threadIdx.x] = b2[threadIdx.x];
-  __syncthreads();
+  const pf::ClbWeights w =
+      pf::clb_stage_weights<T>(smem, w1, b1, w2, b2, Cin + Cc);
 
   const long long total = static_cast<long long>(B) * OH * OW;
   for (long long idx =
@@ -80,54 +63,10 @@ clb_pt_kernel(const T* __restrict__ last, const T* __restrict__ cond,
     const int x = static_cast<int>(idx % OW);
     const int y = static_cast<int>((idx / OW) % OH);
     const int b = static_cast<int>(idx / (static_cast<long long>(OW) * OH));
-
-    float h[kHidden];
-#pragma unroll
-    for (int j = 0; j < kHidden; ++j) h[j] = 0.f;
-
-    const T* lrow = last + b * ls.b + y * ls.y + x * ls.x;
-    for (int c = 0; c < Cin; ++c) {
-      const float v = pf::to_f32(lrow[c * ls.c]);
-      const float* wr = w1s + c * kHidden;
-#pragma unroll
-      for (int j = 0; j < kHidden; ++j) h[j] = fmaf(v, wr[j], h[j]);
-    }
-
-    const pf::Tap ty = pf::align_corners_tap(y, OH, IH);
-    const pf::Tap tx = pf::align_corners_tap(x, OW, IW);
-    const T* base = cond + b * cs.b;
-    const T* r00 = base + ty.i0 * cs.y + tx.i0 * cs.x;
-    const T* r10 = base + ty.i1 * cs.y + tx.i0 * cs.x;
-    const T* r01 = base + ty.i0 * cs.y + tx.i1 * cs.x;
-    const T* r11 = base + ty.i1 * cs.y + tx.i1 * cs.x;
-    for (int c = 0; c < Cc; ++c) {
-      const long long o = c * cs.c;
-      const float a0 = pf::to_f32(r00[o]) * (1.f - ty.w) +
-                       pf::to_f32(r10[o]) * ty.w;
-      const float a1 = pf::to_f32(r01[o]) * (1.f - ty.w) +
-                       pf::to_f32(r11[o]) * ty.w;
-      const float v = a0 * (1.f - tx.w) + a1 * tx.w;
-      const float* wr = w1s + (Cin + c) * kHidden;
-#pragma unroll
-      for (int j = 0; j < kHidden; ++j) h[j] = fmaf(v, wr[j], h[j]);
-    }
-
-    float o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kHidden; ++j) {
-      const float g =
-          pf::round_to<T>(gelu_tanh(pf::round_to<T>(h[j] + b1s[j])));
-      o0 = fmaf(g, w2s[4 * j + 0], o0);
-      o1 = fmaf(g, w2s[4 * j + 1], o1);
-      o2 = fmaf(g, w2s[4 * j + 2], o2);
-      o3 = fmaf(g, w2s[4 * j + 3], o3);
-    }
-    const float p0 = softplus(o0 + b2s[0]) + p_eps;
-    const float p1 = softplus(o1 + b2s[1]) + p_eps;
-    const float t0 = softplus(o2 + b2s[2]) + p_eps;
-    const float t1 = softplus(o3 + b2s[3]) + p_eps;
-    p_out[idx] = p0 / (p0 + p1);
-    t_out[idx] = t0 / (t0 + t1);
+    const float2 pt = pf::clb_pixel<T>(last, cond, ls, cs, w, b, y, x, OH,
+                                       OW, IH, IW, Cin, Cc, p_eps);
+    p_out[idx] = pt.x;
+    t_out[idx] = pt.y;
   }
 }
 
@@ -138,9 +77,7 @@ cudaError_t launch(const void* last, const void* cond, const void* w1,
                    int IW, int Cin, int Cc, pf::Strides4 ls,
                    pf::Strides4 cs, float p_eps, int device,
                    cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(Cin + Cc) * kHidden + 5 * kHidden + 4) *
-      sizeof(float);
+  const size_t smem = pf::clb_smem_floats(Cin + Cc) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       clb_pt_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -181,7 +118,7 @@ extern "C" int pf_clb_pt(const void* last, const void* cond, const void* w1,
                          long long lc, long long cb, long long cy,
                          long long cx, long long cc, float p_eps, int device,
                          void* stream) {
-  if (hidden != kHidden) return static_cast<int>(cudaErrorInvalidValue);
+  if (hidden != pf::kClbHidden) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const pf::Strides4 ls{lb, ly, lx, lc};

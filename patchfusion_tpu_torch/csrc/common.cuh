@@ -1,4 +1,8 @@
-// Helpers shared by the metric-bins head kernels.
+// Helpers shared by the port's kernels: dtype rounding, bilinear taps,
+// strides, and the two per-pixel bodies of the metric-bins head
+// (the ConditionalLogBinomial MLP and the log-binomial depth expectation),
+// which csrc/clb_pt.cu, csrc/logbinomial_depth.cu and csrc/clb_depth.cu
+// compose.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,5 +54,180 @@ __device__ __forceinline__ Tap align_corners_tap(int d, int out, int in) {
 struct Strides4 {
   long long b, y, x, c;
 };
+
+// The four corner rows of one output pixel's bilinear upsample of a
+// (B, IH, IW, C) map: each points at channel 0 and steps by s.c.
+template <typename T>
+struct Corners {
+  const T *r00, *r10, *r01, *r11;
+  Tap ty, tx;
+  long long c;
+
+  __device__ __forceinline__ Corners(const T* map, Strides4 s, int b, int y,
+                                     int x, int OH, int OW, int IH, int IW)
+      : ty(align_corners_tap(y, OH, IH)),
+        tx(align_corners_tap(x, OW, IW)),
+        c(s.c) {
+    const T* base = map + b * s.b;
+    r00 = base + ty.i0 * s.y + tx.i0 * s.x;
+    r10 = base + ty.i1 * s.y + tx.i0 * s.x;
+    r01 = base + ty.i0 * s.y + tx.i1 * s.x;
+    r11 = base + ty.i1 * s.y + tx.i1 * s.x;
+  }
+
+  // Channel ch of the upsampled pixel: H lerp, then W lerp (the reference
+  // interpolate's axis order).
+  __device__ __forceinline__ float at(int ch) const {
+    const long long o = ch * c;
+    const float a0 = to_f32(r00[o]) * (1.f - ty.w) + to_f32(r10[o]) * ty.w;
+    const float a1 = to_f32(r01[o]) * (1.f - ty.w) + to_f32(r11[o]) * ty.w;
+    return a0 * (1.f - tx.w) + a1 * tx.w;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// ConditionalLogBinomial MLP, one output pixel (pallas_head.py clb_pt):
+//   h = last[b,y,x,:] . W1[:Cin] + up(cond)[b,y,x,:] . W1[Cin:] + b1
+//   g = tanh-GELU(h) at T,  s = softplus(g . W2 + b2)
+//   p = (s0+eps) / (s0+s1+2eps),  t = (s2+eps) / (s2+s3+2eps)
+// ---------------------------------------------------------------------------
+
+constexpr int kClbHidden = 80;  // (33 + 128) // 2, fixed by the head's widths
+
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
+}
+
+__device__ __forceinline__ float softplus(float x) {
+  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+
+// Floats of shared memory clb_stage_weights fills.
+__host__ __device__ constexpr int clb_smem_floats(int n_in) {
+  return n_in * kClbHidden + 5 * kClbHidden + 4;
+}
+
+// The MLP weights in shared memory: W1 (Cin + Cc, H), b1 (H,), W2 (H, 4)
+// rounded through T, b2 (4,).
+struct ClbWeights {
+  const float *w1, *b1, *w2, *b2;
+};
+
+// Block-wide copy of the f32 weights into smem (clb_smem_floats(Cin + Cc)
+// floats); ends with __syncthreads.
+template <typename T>
+__device__ __forceinline__ ClbWeights clb_stage_weights(
+    float* smem, const float* __restrict__ w1, const float* __restrict__ b1,
+    const float* __restrict__ w2, const float* __restrict__ b2, int n_in) {
+  const int n_w1 = n_in * kClbHidden;
+  float* w1s = smem;
+  float* b1s = w1s + n_w1;
+  float* w2s = b1s + kClbHidden;
+  float* b2s = w2s + kClbHidden * 4;
+  for (int i = threadIdx.x; i < n_w1; i += blockDim.x) w1s[i] = w1[i];
+  for (int i = threadIdx.x; i < kClbHidden; i += blockDim.x) b1s[i] = b1[i];
+  for (int i = threadIdx.x; i < kClbHidden * 4; i += blockDim.x)
+    w2s[i] = round_to<T>(w2[i]);
+  if (threadIdx.x < 4) b2s[threadIdx.x] = b2[threadIdx.x];
+  __syncthreads();
+  return ClbWeights{w1s, b1s, w2s, b2s};
+}
+
+// (p, t) of pixel (b, y, x). The 80 accumulators live in registers; every
+// weight read is the same smem address across the warp (a broadcast).
+template <typename T>
+__device__ __forceinline__ float2 clb_pixel(
+    const T* __restrict__ last, const T* __restrict__ cond, Strides4 ls,
+    Strides4 cs, const ClbWeights& w, int b, int y, int x, int OH, int OW,
+    int IH, int IW, int Cin, int Cc, float p_eps) {
+  float h[kClbHidden];
+#pragma unroll
+  for (int j = 0; j < kClbHidden; ++j) h[j] = 0.f;
+
+  const T* lrow = last + b * ls.b + y * ls.y + x * ls.x;
+  for (int c = 0; c < Cin; ++c) {
+    const float v = to_f32(lrow[c * ls.c]);
+    const float* wr = w.w1 + c * kClbHidden;
+#pragma unroll
+    for (int j = 0; j < kClbHidden; ++j) h[j] = fmaf(v, wr[j], h[j]);
+  }
+
+  const Corners<T> cu(cond, cs, b, y, x, OH, OW, IH, IW);
+  for (int c = 0; c < Cc; ++c) {
+    const float v = cu.at(c);
+    const float* wr = w.w1 + (Cin + c) * kClbHidden;
+#pragma unroll
+    for (int j = 0; j < kClbHidden; ++j) h[j] = fmaf(v, wr[j], h[j]);
+  }
+
+  float o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kClbHidden; ++j) {
+    const float g =
+        round_to<T>(gelu_tanh(round_to<T>(h[j] + w.b1[j])));
+    o0 = fmaf(g, w.w2[4 * j + 0], o0);
+    o1 = fmaf(g, w.w2[4 * j + 1], o1);
+    o2 = fmaf(g, w.w2[4 * j + 2], o2);
+    o3 = fmaf(g, w.w2[4 * j + 3], o3);
+  }
+  const float p0 = softplus(o0 + w.b2[0]) + p_eps;
+  const float p1 = softplus(o1 + w.b2[1]) + p_eps;
+  const float t0 = softplus(o2 + w.b2[2]) + p_eps;
+  const float t1 = softplus(o3 + w.b2[3]) + p_eps;
+  return make_float2(p0 / (p0 + p1), t0 / (t0 + t1));
+}
+
+// ---------------------------------------------------------------------------
+// Log-binomial depth expectation, one output pixel
+// (pallas_head.py logbinomial_depth):
+//   pc = clip(p, 1e-4, 1), q = clip(1 - pc, 1e-4, 1)
+//   y[k] = (c0[k] + k log pc + (K-1-k) log q) / (t (max-min) + min)
+//   depth = sum_k softmax(y)[k] up(centers)[b,y,x,k]
+// ---------------------------------------------------------------------------
+
+// The K-entry table log C(K-1, k) in the reference's Stirling form
+// (dist_layers.py:29-33), in double as the host computes it; block-wide,
+// ends with __syncthreads.
+__device__ __forceinline__ void fill_log_binom_c0(float* c0, int K) {
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const double e = 1e-7;
+    const double n = static_cast<double>(K - 1) + e;
+    const double kk = static_cast<double>(k) + e;
+    const double d = fmax(n - kk, 0.0);
+    c0[k] = static_cast<float>(n * log(n) - kk * log(kk) - d * log(d + e));
+  }
+  __syncthreads();
+}
+
+// Two passes over K (max, then exp-sum and the weighted sum), so nothing
+// K-sized lives in registers; the upsampled centers are never stored.
+template <typename T>
+__device__ __forceinline__ float logbinom_depth_pixel(
+    float p, float t, const T* __restrict__ centers, Strides4 cs,
+    const float* c0, int b, int y, int x, int OH, int OW, int IH, int IW,
+    int K, float min_temp, float max_temp) {
+  const Corners<T> cent(centers, cs, b, y, x, OH, OW, IH, IW);
+  const float pc = fminf(fmaxf(p, 1e-4f), 1.f);
+  const float q = fminf(fmaxf(1.f - pc, 1e-4f), 1.f);
+  const float lp = logf(pc);
+  const float lq = logf(q);
+  const float tv = t * (max_temp - min_temp) + min_temp;
+  const float km1 = static_cast<float>(K - 1);
+
+  float m = __int_as_float(0xff800000);  // -inf
+  for (int k = 0; k < K; ++k) {
+    const float kf = static_cast<float>(k);
+    m = fmaxf(m, (c0[k] + kf * lp + (km1 - kf) * lq) / tv);
+  }
+  float se = 0.f, sc = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const float kf = static_cast<float>(k);
+    const float ek = expf((c0[k] + kf * lp + (km1 - kf) * lq) / tv - m);
+    se += ek;
+    sc += ek * cent.at(k);
+  }
+  return sc / se;
+}
 
 }  // namespace pf

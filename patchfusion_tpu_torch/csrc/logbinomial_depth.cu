@@ -20,7 +20,8 @@
 // once per block into shared memory (in double, as the host does); the
 // softmax takes two passes over K (max, then exp-sum and the weighted sum)
 // so nothing K-sized lives in registers, and the upsampled centers are
-// never written to memory. The TPU kernel's banded W matrix, DMA'd row
+// never written to memory. The per-pixel body is pf::logbinom_depth_pixel
+// (common.cuh), shared with csrc/clb_depth.cu. The TPU kernel's banded W matrix, DMA'd row
 // spans and lane padding have no counterpart: the bilinear taps are
 // computed per pixel. centers are read through their strides, so the
 // model passes its NCHW tensor as a permuted view; neighbouring threads
@@ -39,15 +40,7 @@ logbinomial_depth_kernel(const float* __restrict__ p,
                          int IH, int IW, int K, pf::Strides4 cs,
                          float min_temp, float max_temp) {
   extern __shared__ float c0[];  // K entries
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    // log C(K-1, k) in the reference's Stirling form (dist_layers.py:29-33)
-    const double e = 1e-7;
-    const double n = static_cast<double>(K - 1) + e;
-    const double kk = static_cast<double>(k) + e;
-    const double d = fmax(n - kk, 0.0);
-    c0[k] = static_cast<float>(n * log(n) - kk * log(kk) - d * log(d + e));
-  }
-  __syncthreads();
+  pf::fill_log_binom_c0(c0, K);
 
   const long long total = static_cast<long long>(B) * OH * OW;
   const long long idx =
@@ -56,44 +49,9 @@ logbinomial_depth_kernel(const float* __restrict__ p,
   const int x = static_cast<int>(idx % OW);
   const int y = static_cast<int>((idx / OW) % OH);
   const int b = static_cast<int>(idx / (static_cast<long long>(OW) * OH));
-
-  const pf::Tap ty = pf::align_corners_tap(y, OH, IH);
-  const pf::Tap tx = pf::align_corners_tap(x, OW, IW);
-  const T* base = centers + b * cs.b;
-  const T* r00 = base + ty.i0 * cs.y + tx.i0 * cs.x;
-  const T* r10 = base + ty.i1 * cs.y + tx.i0 * cs.x;
-  const T* r01 = base + ty.i0 * cs.y + tx.i1 * cs.x;
-  const T* r11 = base + ty.i1 * cs.y + tx.i1 * cs.x;
-
-  const float pc = fminf(fmaxf(p[idx], 1e-4f), 1.f);
-  const float q = fminf(fmaxf(1.f - pc, 1e-4f), 1.f);
-  const float lp = logf(pc);
-  const float lq = logf(q);
-  const float tv = t[idx] * (max_temp - min_temp) + min_temp;
-  const float km1 = static_cast<float>(K - 1);
-
-  float m = __int_as_float(0xff800000);  // -inf
-  for (int k = 0; k < K; ++k) {
-    const float kf = static_cast<float>(k);
-    const float yk = (c0[k] + kf * lp + (km1 - kf) * lq) / tv;
-    m = fmaxf(m, yk);
-  }
-  float se = 0.f, sc = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const float kf = static_cast<float>(k);
-    const float yk = (c0[k] + kf * lp + (km1 - kf) * lq) / tv;
-    const float ek = expf(yk - m);
-    const long long o = k * cs.c;
-    // H lerp, then W lerp: the reference interpolate's axis order
-    const float a0 = pf::to_f32(r00[o]) * (1.f - ty.w) +
-                     pf::to_f32(r10[o]) * ty.w;
-    const float a1 = pf::to_f32(r01[o]) * (1.f - ty.w) +
-                     pf::to_f32(r11[o]) * ty.w;
-    const float cent = a0 * (1.f - tx.w) + a1 * tx.w;
-    se += ek;
-    sc += ek * cent;
-  }
-  out[idx] = sc / se;
+  out[idx] = pf::logbinom_depth_pixel<T>(p[idx], t[idx], centers, cs, c0, b,
+                                         y, x, OH, OW, IH, IW, K, min_temp,
+                                         max_temp);
 }
 
 template <typename T>

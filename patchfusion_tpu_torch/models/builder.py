@@ -48,10 +48,16 @@ def guided_fusion_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
 
 @MODELS.register_module(name="PatchFusion")
 def build_patchfusion(config: Dict[str, Any], dtype=torch.float32,
-                      device="cpu") -> Tuple[PatchFusionNet, TileConfig]:
+                      device="cuda") -> Tuple[PatchFusionNet, TileConfig]:
     """config: the reference PatchFusion `model.config` dict. The modules
     are created directly on `device` (their default init runs there) and
-    cast to `dtype`, in eval mode."""
+    cast to `dtype`, in eval mode. The default is the card; a caller who
+    wants the CPU passes device="cpu". Raises if a CUDA device is asked for
+    and there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} was asked for but CUDA is not "
+                           "available; pass device='cpu' to run on the CPU")
     tile_cfg = TileConfig(tuple(config["image_raw_shape"]),
                           tuple(config["patch_split_num"]),
                           tuple(config["patch_process_shape"]))

@@ -10,13 +10,16 @@ reference state_dict.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import os
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from patchfusion_tpu_torch.ops.activations import gelu
 from patchfusion_tpu_torch.ops.resize import interpolate
+from patchfusion_tpu_torch.ops.vit_attention import (vit_attention,
+                                                     vit_attention_plain)
 
 VIT_CONFIGS = {
     "vits": dict(embed_dim=384, depth=12, num_heads=6),
@@ -28,25 +31,28 @@ VIT_CONFIGS = {
 }
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """(B, N, H, Dh) self-attention, dtype-aware.
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    impl: Optional[str] = None) -> torch.Tensor:
+    """(B, N, H, Dh) self-attention, dtype-aware, dispatched as the JAX
+    package's fused_attention (models/dinov2.py:79-84).
 
-    float32: plain dense attention. bfloat16: the JAX package's einsum
-    contract (models/dinov2.py:85-98): bf16 logits of (q * scale) k^T, f32
-    max and exp, bf16 probabilities, f32 normaliser applied after the
+    float32: plain dense attention. bfloat16: `impl`, or the environment
+    variable PF_ATTN_IMPL, or "einsum". "pallas" launches the hand-written
+    attention kernel (ops/vit_attention.py; its plain twin on CPU tensors);
+    anything else runs the JAX einsum contract in plain torch ops
+    (vit_attention_plain): bf16 logits of (q * scale) k^T, bf16 s - m, f32
+    exp, bf16 probabilities, f32 normaliser applied after the f32
     probability-value product.
     """
-    scale = q.shape[-1] ** -0.5
     if q.dtype != torch.bfloat16:
+        scale = q.shape[-1] ** -0.5
         logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
         probs = torch.softmax(logits, dim=-1)
         return torch.einsum("bhnm,bmhd->bnhd", probs, v)
-    logits = torch.einsum("bnhd,bmhd->bhnm", q * scale, k).float()
-    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    s = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhnm,bmhd->bnhd", p.to(torch.bfloat16), v)
-    return (o.float() / s.transpose(1, 2)).to(q.dtype)
+    impl = impl or os.environ.get("PF_ATTN_IMPL", "einsum")
+    if impl == "pallas":
+        return vit_attention(q, k, v)
+    return vit_attention_plain(q, k, v)
 
 
 class Attention(nn.Module):

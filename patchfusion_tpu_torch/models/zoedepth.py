@@ -200,11 +200,31 @@ class ConditionalLogBinomial(nn.Module):
         clb_pt kernel (plain twin on the CPU): the kernel upsamples the
         condition itself and never writes the full-resolution bottleneck.
         The NCHW tensors go in as permuted channels-last views (no copy)."""
-        w1 = self.mlp[0].weight[:, :, 0, 0].t()
-        w2 = self.mlp[2].weight[:, :, 0, 0].t()
         return fused_head.clb_pt(
-            x_hi.permute(0, 2, 3, 1), cond_lo.permute(0, 2, 3, 1), w1,
-            self.mlp[0].bias, w2, self.mlp[2].bias, self.p_eps)
+            x_hi.permute(0, 2, 3, 1), cond_lo.permute(0, 2, 3, 1),
+            *self.mlp_weights(), self.p_eps)
+
+    def depth_fused(self, x_hi, cond_lo, centers) -> torch.Tensor:
+        """The whole stage, params_pt_fused and the log-binomial depth, in
+        one launch of the clb_logbinomial_depth kernel (plain twin on the
+        CPU): p and t never leave registers. x_hi (B, Cin, OH, OW); cond_lo
+        (B, Cc, IH, IW) and centers (B, K, IH, IW) at the attractor
+        resolution. Returns depth (B, 1, OH, OW) float32. bf16 only, as in
+        the JAX package (models/zoedepth.py:318-348): the kernel's tanh-GELU
+        is the bf16 path's activation."""
+        if x_hi.dtype != torch.bfloat16:
+            raise TypeError(f"depth_fused is bf16-only (tanh-GELU contract); "
+                            f"got {x_hi.dtype}")
+        return fused_head.clb_logbinomial_depth(
+            x_hi.permute(0, 2, 3, 1), cond_lo.permute(0, 2, 3, 1),
+            centers.permute(0, 2, 3, 1), *self.mlp_weights(),
+            self.min_temp, self.max_temp, self.p_eps)[:, None]
+
+    def mlp_weights(self) -> Tuple[torch.Tensor, ...]:
+        """mlp_0 and mlp_2 as the kernels take them: w1 (Cin + Cc, H), b1,
+        w2 (H, 4), b2."""
+        return (self.mlp[0].weight[:, :, 0, 0].t(), self.mlp[0].bias,
+                self.mlp[2].weight[:, :, 0, 0].t(), self.mlp[2].bias)
 
     def forward(self, x, cond) -> torch.Tensor:
         """Probabilities (B, K, H, W) over the bins (unfused path)."""

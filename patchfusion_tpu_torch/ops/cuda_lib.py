@@ -1,0 +1,149 @@
+"""Build, load and call the port's CUDA kernel library.
+
+The kernels live in `patchfusion_tpu_torch/csrc/*.cu`. At first use
+`build_kernels` compiles each source with its own `nvcc` for sm_90a, all
+started together, and links the objects into one shared library with a
+plain C interface, cached under `patchfusion_tpu_torch/_build/<hash of the
+sources and flags>/`; `load_kernels` loads it with ctypes once per process.
+The helpers below are the argument checks the kernel wrappers
+(`ops/fused_head.py`, `ops/vit_attention.py`) share.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "libpf_kernels.so"
+
+_lib = None
+
+
+def _find_nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise FileNotFoundError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH); the CUDA kernels cannot be built")
+    return found
+
+
+def build_kernels() -> Path:
+    """Compile csrc/*.cu into the shared library unless a build of these
+    exact sources and flags exists. Returns the library's path; nvcc's
+    output (with ptxas register and shared-memory use per kernel) is kept
+    beside it as nvcc.log."""
+    h = hashlib.sha256()
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out_dir = BUILD_DIR / h.hexdigest()[:16]
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _find_nvcc()
+    tag = os.getpid()
+    jobs = []
+    log = []
+    try:
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = out_dir / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]}: code {proc.returncode}\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-4000:])
+        tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+        cmd = [nvcc, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             check=False)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with code "
+                               f"{res.returncode}:\n{res.stderr[-4000:]}")
+        os.replace(tmp, lib)
+    finally:
+        for _, obj, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            obj.unlink(missing_ok=True)
+        (out_dir / "nvcc.log").write_text("\n".join(log))
+    return lib
+
+
+def load_kernels() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library once per process."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_kernels()))
+        vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                             ctypes.c_longlong, ctypes.c_float)
+        lib.pf_logbinomial_depth.argtypes = (
+            [vp] * 4 + [i32] * 7 + [i64] * 4 + [f32] * 2 + [i32, vp])
+        lib.pf_clb_pt.argtypes = (
+            [vp] * 8 + [i32] * 9 + [i64] * 8 + [f32, i32, vp])
+        lib.pf_clb_logbinomial_depth.argtypes = (
+            [vp] * 8 + [i32] * 10 + [i64] * 12 + [f32] * 3 + [i32, vp])
+        lib.pf_vit_attention.argtypes = (
+            [vp] * 4 + [i32] * 4 + [i64] * 9 + [f32, i32, i32, vp])
+        for fn in (lib.pf_logbinomial_depth, lib.pf_clb_pt,
+                   lib.pf_clb_logbinomial_depth, lib.pf_vit_attention):
+            fn.restype = i32
+        _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# argument checks shared by the wrappers
+# ---------------------------------------------------------------------------
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors (the wrappers then run the plain twins), False
+    for CUDA tensors; raises for mixed or other devices."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on several devices: {devices}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {dev}")
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t "
+                           f"{err}")

@@ -1,136 +1,46 @@
 """Metric-bins head kernels: the CUDA counterparts of
-patchfusion_tpu/ops/pallas_head.py::clb_pt and ::logbinomial_depth.
+patchfusion_tpu/ops/pallas_head.py::clb_pt, ::logbinomial_depth and
+::clb_logbinomial_depth.
 
 Each kernel has three pieces here:
 
-  * the wrapper (`clb_pt`, `logbinomial_depth`), with the JAX signature and
-    channels-last layout. For CPU tensors it returns the plain PyTorch twin;
-    for CUDA tensors it launches the hand-written kernel on the current
-    stream, or raises. It never falls back from CUDA to the twin.
-  * the plain twin (`clb_pt_plain`, `logbinomial_depth_plain`), a direct
-    transcription of the JAX `*_reference` functions
-    (pallas_head.py:670-694, 725-745).
+  * the wrapper (`clb_pt`, `logbinomial_depth`, `clb_logbinomial_depth`),
+    with the JAX signature and channels-last layout. For CPU tensors it
+    returns the plain PyTorch twin; for CUDA tensors it launches the
+    hand-written kernel on the current stream, or raises. It never falls
+    back from CUDA to the twin.
+  * the plain twin (`*_plain`), a direct transcription of the JAX
+    `*_reference` functions (pallas_head.py:670-745).
   * a launch count in `LAUNCHES`, raised by one per kernel launch and
     nowhere else.
 
-The kernels live in `patchfusion_tpu_torch/csrc/*.cu` and are compiled by
-`nvcc` for sm_90a into one shared library with a plain C interface at first
-use (`load_kernels`), cached under `patchfusion_tpu_torch/_build/<hash of
-the sources and flags>/`. Both kernels read their 4-D inputs through
-strides, so the model hands them permuted views of its NCHW tensors instead
-of channels-last copies.
+The kernels live in `patchfusion_tpu_torch/csrc/` (built and loaded by
+`ops/cuda_lib.py`). They read their 4-D inputs through strides, so the
+model hands them permuted views of its NCHW tensors instead of
+channels-last copies.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from patchfusion_tpu_torch.ops.cuda_lib import (load_kernels, on_cpu,
+                                                raise_on, stream)
 from patchfusion_tpu_torch.ops.resize import interpolate
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
-LIB_NAME = "libpf_kernels.so"
-CLB_HIDDEN = 80  # the hidden width csrc/clb_pt.cu is compiled for
+CLB_HIDDEN = 80  # the hidden width csrc/common.cuh is compiled for
 
 # kernel launches since the counts were last set to 0
-LAUNCHES = {"clb_pt": 0, "logbinomial_depth": 0}
-
-_lib = None
-
-
-# ---------------------------------------------------------------------------
-# build and load
-# ---------------------------------------------------------------------------
-
-def _find_nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.isfile(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise FileNotFoundError(
-            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
-            "and PATH); the CUDA kernels cannot be built")
-    return found
-
-
-def build_kernels() -> Path:
-    """Compile csrc/*.cu into the shared library unless a build of these
-    exact sources and flags exists. Returns the library's path; nvcc's
-    output (with ptxas register and shared-memory use) is kept beside it as
-    nvcc.log."""
-    h = hashlib.sha256()
-    for f in sorted(CSRC.iterdir()):
-        if f.suffix in (".cu", ".cuh"):
-            h.update(f.name.encode())
-            h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    out_dir = BUILD_DIR / h.hexdigest()[:16]
-    lib = out_dir / LIB_NAME
-    if lib.is_file():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (out_dir / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
-                           f"{res.stderr[-4000:]}")
-    os.replace(tmp, lib)
-    return lib
-
-
-def load_kernels() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library once per process."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_kernels()))
-        vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
-                             ctypes.c_longlong, ctypes.c_float)
-        lib.pf_logbinomial_depth.argtypes = (
-            [vp] * 4 + [i32] * 7 + [i64] * 4 + [f32] * 2 + [i32, vp])
-        lib.pf_logbinomial_depth.restype = i32
-        lib.pf_clb_pt.argtypes = (
-            [vp] * 8 + [i32] * 9 + [i64] * 8 + [f32, i32, vp])
-        lib.pf_clb_pt.restype = i32
-        _lib = lib
-    return _lib
+LAUNCHES = {"clb_pt": 0, "logbinomial_depth": 0, "clb_logbinomial_depth": 0}
 
 
 # ---------------------------------------------------------------------------
 # argument checks
 # ---------------------------------------------------------------------------
-
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"inputs lie on several devices: {devices}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type == "cuda":
-        return False
-    raise ValueError(f"no kernel for device {dev}")
-
 
 def _check_dense_nhwc(t: torch.Tensor, name: str) -> None:
     """A 4-D (B, H, W, C) tensor that is contiguous, or a permuted view of a
@@ -141,16 +51,6 @@ def _check_dense_nhwc(t: torch.Tensor, name: str) -> None:
     if not (t.is_contiguous() or t.permute(0, 3, 1, 2).is_contiguous()):
         raise ValueError(f"{name} must be contiguous channels-last or a "
                          "permuted contiguous NCHW tensor")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _raise_on(err: int, kernel: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t "
-                           f"{err}")
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +96,7 @@ def logbinomial_depth(p: torch.Tensor, t: torch.Tensor,
     centers: (B, IH, IW, K) bin centers, float32 or bfloat16, channels-last
     or a permuted NCHW view. Returns (B, OH, OW) float32.
     """
-    if _on_cpu(p, t, centers):
+    if on_cpu(p, t, centers):
         return logbinomial_depth_plain(p, t, centers, min_temp, max_temp)
     if p.dim() != 3 or t.shape != p.shape:
         raise ValueError(f"p and t must share a (B, OH, OW) shape, got "
@@ -220,8 +120,8 @@ def logbinomial_depth(p: torch.Tensor, t: torch.Tensor,
         p.data_ptr(), t.data_ptr(), centers.data_ptr(), out.data_ptr(),
         int(centers.dtype == torch.bfloat16), b, oh, ow, ih, iw, k,
         *centers.stride(), float(min_temp), float(max_temp),
-        p.device.index, _stream(p.device))
-    _raise_on(err, "logbinomial_depth")
+        p.device.index, stream(p.device))
+    raise_on(err, "logbinomial_depth")
     LAUNCHES["logbinomial_depth"] += 1
     return out
 
@@ -264,16 +164,35 @@ def clb_pt(last_cat: torch.Tensor, cond_lo: torch.Tensor, w1: torch.Tensor,
     (80,); w2/b2: mlp_2 as (80, 4) and (4,). Returns p and t_norm, each
     (B, OH, OW) float32, t before the temperature scaling.
     """
-    if _on_cpu(last_cat, cond_lo, w1, b1, w2, b2):
+    if on_cpu(last_cat, cond_lo, w1, b1, w2, b2):
         return clb_pt_plain(last_cat, cond_lo, w1, b1, w2, b2, p_eps)
+    weights = _check_clb(last_cat, cond_lo, w1, b1, w2, b2)
+    b, oh, ow, cin = last_cat.shape
+    _, ih, iw, cc = cond_lo.shape
+    p = torch.empty((b, oh, ow), dtype=torch.float32, device=last_cat.device)
+    t = torch.empty_like(p)
+    err = load_kernels().pf_clb_pt(
+        last_cat.data_ptr(), cond_lo.data_ptr(),
+        *(w.data_ptr() for w in weights), p.data_ptr(), t.data_ptr(),
+        int(last_cat.dtype == torch.bfloat16), b, oh, ow, ih, iw, cin, cc,
+        CLB_HIDDEN, *last_cat.stride(), *cond_lo.stride(), float(p_eps),
+        last_cat.device.index, stream(last_cat.device))
+    raise_on(err, "clb_pt")
+    LAUNCHES["clb_pt"] += 1
+    return p, t
+
+
+def _check_clb(last_cat, cond_lo, w1, b1, w2, b2) -> Tuple[torch.Tensor, ...]:
+    """Raises on inputs the clb kernels do not take; returns the weights as
+    contiguous float32 (w1, b1, w2, b2)."""
     _check_dense_nhwc(last_cat, "last_cat")
     _check_dense_nhwc(cond_lo, "cond_lo")
     if last_cat.dtype != cond_lo.dtype or last_cat.dtype not in (
             torch.float32, torch.bfloat16):
         raise TypeError(f"last_cat and cond_lo must both be float32 or both "
                         f"bfloat16, got {last_cat.dtype}, {cond_lo.dtype}")
-    b, oh, ow, cin = last_cat.shape
-    cb, ih, iw, cc = cond_lo.shape
+    b, _, _, cin = last_cat.shape
+    cb, _, _, cc = cond_lo.shape
     if cb != b:
         raise ValueError(f"batch mismatch: last_cat {b}, cond_lo {cb}")
     hidden = CLB_HIDDEN
@@ -285,16 +204,66 @@ def clb_pt(last_cat: torch.Tensor, cond_lo: torch.Tensor, w1: torch.Tensor,
             f"{tuple(b1.shape)}, {tuple(w2.shape)}, {tuple(b2.shape)}")
     if (cin + cc) * hidden * 4 > 200 * 1024:  # W1 is staged in shared memory
         raise ValueError(f"input width {cin + cc} too large for the kernel")
-    w1f, b1f, w2f, b2f = (w.to(torch.float32).contiguous()
-                          for w in (w1, b1, w2, b2))
-    p = torch.empty((b, oh, ow), dtype=torch.float32, device=last_cat.device)
-    t = torch.empty_like(p)
-    err = load_kernels().pf_clb_pt(
-        last_cat.data_ptr(), cond_lo.data_ptr(), w1f.data_ptr(),
-        b1f.data_ptr(), w2f.data_ptr(), b2f.data_ptr(), p.data_ptr(),
-        t.data_ptr(), int(last_cat.dtype == torch.bfloat16), b, oh, ow, ih,
-        iw, cin, cc, hidden, *last_cat.stride(), *cond_lo.stride(),
-        float(p_eps), last_cat.device.index, _stream(last_cat.device))
-    _raise_on(err, "clb_pt")
-    LAUNCHES["clb_pt"] += 1
-    return p, t
+    return tuple(w.to(torch.float32).contiguous() for w in (w1, b1, w2, b2))
+
+
+# ---------------------------------------------------------------------------
+# clb_logbinomial_depth: clb_pt and logbinomial_depth in one launch
+# ---------------------------------------------------------------------------
+
+def clb_logbinomial_depth_plain(last_cat: torch.Tensor, cond_lo: torch.Tensor,
+                                centers: torch.Tensor, w1: torch.Tensor,
+                                b1: torch.Tensor, w2: torch.Tensor,
+                                b2: torch.Tensor, min_temp: float = 0.0212,
+                                max_temp: float = 50.0, p_eps: float = 1e-4
+                                ) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: clb_depth_reference, i.e. the two
+    twins composed."""
+    p, t = clb_pt_plain(last_cat, cond_lo, w1, b1, w2, b2, p_eps)
+    return logbinomial_depth_plain(p, t, centers, min_temp, max_temp)
+
+
+def clb_logbinomial_depth(last_cat: torch.Tensor, cond_lo: torch.Tensor,
+                          centers: torch.Tensor, w1: torch.Tensor,
+                          b1: torch.Tensor, w2: torch.Tensor,
+                          b2: torch.Tensor, min_temp: float = 0.0212,
+                          max_temp: float = 50.0, p_eps: float = 1e-4
+                          ) -> torch.Tensor:
+    """Depth of the whole ConditionalLogBinomial stage in one launch:
+    logbinomial_depth(*clb_pt(last_cat, cond_lo, w1, b1, w2, b2, p_eps),
+    centers, min_temp, max_temp), with p and t kept in registers.
+
+    last_cat: (B, OH, OW, Cin); cond_lo: (B, IH, IW, Cc) and centers
+    (B, IH, IW, K) at the same low resolution; all three float32 or all
+    bfloat16, channels-last or permuted NCHW views. Weights as for clb_pt.
+    Returns (B, OH, OW) float32.
+    """
+    if on_cpu(last_cat, cond_lo, centers, w1, b1, w2, b2):
+        return clb_logbinomial_depth_plain(last_cat, cond_lo, centers, w1,
+                                           b1, w2, b2, min_temp, max_temp,
+                                           p_eps)
+    weights = _check_clb(last_cat, cond_lo, w1, b1, w2, b2)
+    _check_dense_nhwc(centers, "centers")
+    if centers.dtype != last_cat.dtype:
+        raise TypeError(f"centers must share the inputs' dtype "
+                        f"{last_cat.dtype}, got {centers.dtype}")
+    b, oh, ow, cin = last_cat.shape
+    _, ih, iw, cc = cond_lo.shape
+    k = centers.shape[-1]
+    if tuple(centers.shape[:3]) != (b, ih, iw):
+        raise ValueError(f"centers must be (B, IH, IW, K) = ({b}, {ih}, {iw},"
+                         f" K) like cond_lo, got {tuple(centers.shape)}")
+    if not 0 < k <= 4096:  # the c0 table sits beside W1 in shared memory
+        raise ValueError(f"unsupported bin count {k}")
+    out = torch.empty((b, oh, ow), dtype=torch.float32,
+                      device=last_cat.device)
+    err = load_kernels().pf_clb_logbinomial_depth(
+        last_cat.data_ptr(), cond_lo.data_ptr(), centers.data_ptr(),
+        *(w.data_ptr() for w in weights), out.data_ptr(),
+        int(last_cat.dtype == torch.bfloat16), b, oh, ow, ih, iw, cin, cc, k,
+        CLB_HIDDEN, *last_cat.stride(), *cond_lo.stride(), *centers.stride(),
+        float(p_eps), float(min_temp), float(max_temp),
+        last_cat.device.index, stream(last_cat.device))
+    raise_on(err, "clb_logbinomial_depth")
+    LAUNCHES["clb_logbinomial_depth"] += 1
+    return out

@@ -4,6 +4,7 @@ PatchFusionInference.infer (patchfusion_tpu.engine.inference) on the tiny
 config with the same weights, images and random tile origins; float32, at
 1e-3 relative to max (measured ~1e-6). Plus the port's import boundary."""
 
+import inspect
 import subprocess
 import sys
 
@@ -16,6 +17,7 @@ import chip_smoke
 from patchfusion_tpu.engine.inference import PatchFusionInference
 from patchfusion_tpu_torch.api import PatchFusion
 from patchfusion_tpu_torch.engine.inference import _parse_mode
+from patchfusion_tpu_torch.models.builder import build_patchfusion
 
 from .torch_parity import port_net, rel_err, tiny_jax
 
@@ -108,9 +110,49 @@ def test_chip_smoke_tiny_config_is_the_graft_config():
     assert chip_smoke.tiny_config() == graft._tiny_config()
 
 
+def test_entry_points_default_to_the_card():
+    """PatchFusion.from_config and build_patchfusion run on the card unless
+    the caller asks for the CPU; without CUDA the default raises instead of
+    falling back."""
+    for fn in (PatchFusion.from_config, build_patchfusion):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    cfg = chip_smoke.tiny_config()
+    if torch.cuda.is_available():
+        model = PatchFusion.from_config(cfg)
+        assert next(model.net.parameters()).is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PatchFusion.from_config(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_patchfusion(cfg)
+    net, _ = build_patchfusion(cfg, device="cpu")
+    assert next(net.parameters()).device.type == "cpu"
+
+
+def test_chip_smoke_bounds():
+    """The least times chip_smoke.py reports beside the kernels, at the
+    main-path shapes (B=4, 392x518 out, 224x296 in, bf16): bytes / 3.35
+    TB/s for the head kernels, tensor-core FLOPs / 989 TFLOP/s for the
+    attention."""
+    heads = chip_smoke.head_bounds(4, 392, 518, 224, 296, 64, 33, 128, 80, 2)
+    ms = {name: round(t * 1e3, 1) for name, (t, _) in heads.items()}
+    assert ms == {"clb_pt": 38.2, "logbinomial_depth": 13.0,
+                  "clb_logbinomial_depth": 47.4}  # microseconds
+    assert {by for _, by in heads.values()} == {"bytes"}
+    t, by = chip_smoke.attention_bound(4, 1037, 16, 64)
+    assert (round(t * 1e3, 1), by) == (17.8, "operations")
+
+
+def test_profile_busy_time_is_the_union_of_intervals():
+    from patchfusion_tpu_torch.profile_request import _busy_us
+    assert _busy_us([(5, 6), (0, 2), (1, 3), (2.5, 2.8)]) == 4
+    assert _busy_us([]) == 0
+
+
 def test_import_pulls_in_no_jax_or_triton():
     code = ("import sys, patchfusion_tpu_torch, patchfusion_tpu_torch.api, "
-            "patchfusion_tpu_torch.convert.from_jax; "
+            "patchfusion_tpu_torch.convert.from_jax, "
+            "patchfusion_tpu_torch.profile_request; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'patchfusion_tpu', 'triton')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -43,7 +43,7 @@ def tiny_jax(seed: int = 0):
 
 def port_net(cfg, var, dtype=torch.float32):
     """The port's PatchFusionNet with the JAX variables, loaded strictly."""
-    net, tile_cfg = build_patchfusion(cfg)
+    net, tile_cfg = build_patchfusion(cfg, device="cpu")
     net.load_state_dict(to_torch(state_dict_from_flax(
         var["params"], var["batch_stats"], cfg)), strict=True)
     return net.to(dtype), tile_cfg
