@@ -12,7 +12,10 @@
    the head kernels at B = 1 and 4, output 392x518, low-res input 224x296,
    float32 and bfloat16, channels-last and permuted-NCHW inputs; the
    attention kernel at the vitl fine and coarse shapes (B = 4 and 1,
-   N = 1037, H = 16, Dh = 64) on strided qkv views, bf16_exp 0 and 1.
+   N = 1037, H = 16, Dh = 64) and at the vitmicro width (Dh = 32) on
+   strided qkv views, in all three roundings. Times are per call over runs
+   of 20 back-to-back calls; each row carries its bound and bound_share
+   (bound_ms / ms).
 4. Builds DA-vitl PatchFusion at full width from
    configs/patchfusion_depthanything/depthanything_vitl_patchfusion_u4k.py
    in bf16 with seeded random weights, answers three m1 requests and one m2
@@ -225,7 +228,12 @@ def phase_build():
     return secs
 
 
-def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
+def _time_ms(fn, calls: int = 20, reps: int = 7, warm: int = 3) -> float:
+    """Median over `reps` of the mean time of `calls` back-to-back calls,
+    CUDA events around each run of calls: the device time per call when
+    the card stays busy, so a call's host-side work (argument checks,
+    tensor maps, the launch itself) is not counted unless it is slower
+    than the kernel."""
     import torch
 
     for _ in range(warm):
@@ -235,10 +243,11 @@ def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return float(np.median(times))
 
 
@@ -350,55 +359,67 @@ def _head_kernels(results):
                 for name, r in (("logbinomial_depth", row), ("clb_pt", crow),
                                 ("clb_logbinomial_depth", frow)):
                     r["bound_ms"], r["bound_by"] = bounds[name]
+                    if "ms" in r:
+                        r["bound_share"] = r["bound_ms"] / r["ms"]
                     r["library_ms"] = None
                     results[(name, dname, b, layout)] = r
                     say(f"kernel {name} {dname} B={b} {layout}: "
                         + json.dumps(r))
 
 
+# (B, N, H, Dh): the vitl fine and coarse passes, and the vitmicro width
+# the tiny config runs (42x56 tiles: 12 patches and the class token)
+ATTN_SHAPES = [(4, 1037, 16, 64), (1, 1037, 16, 64), (2, 13, 2, 32)]
+
+
 def _attention_kernel(results):
-    """The attention kernel against its twin on strided qkv views, with
-    scaled_dot_product_attention timed beside it as the yardstick."""
+    """The attention kernel against its twin on strided qkv views, for all
+    three roundings, with scaled_dot_product_attention timed beside it as
+    the yardstick."""
     import torch
     import torch.nn.functional as F
     from patchfusion_tpu_torch.ops import vit_attention as va
 
     dev = torch.device("cuda")
-    n, h, dh = 1037, 16, 64
-    for b in (4, 1):
-        rng = np.random.default_rng(10 + b)
+    # wrapper -> the twin's rounding (round_logits, round_diff)
+    wrappers = {
+        "vit_attention": (va.vit_attention, (True, True)),
+        "vit_attention_blocked": (va.vit_attention_blocked, (False, False)),
+        "vit_attention_mxsum(bf16_exp=True)": (
+            lambda q, k, v: va.vit_attention_mxsum(q, k, v, bf16_exp=True),
+            (False, True)),
+    }
+    for b, n, h, dh in ATTN_SHAPES:
+        rng = np.random.default_rng(10 + b + dh)
         qkv = torch.from_numpy(rng.standard_normal(
             (b, n, 3, h, dh), dtype=np.float32)).to(dev, torch.bfloat16)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        for bf16_exp in (1, 0):
-            def kernel():
-                if bf16_exp:
-                    return va.vit_attention(q, k, v)
-                return va.vit_attention_mxsum(q, k, v, bf16_exp=False)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        for label, (fn, rounding) in wrappers.items():
+            def kernel(fn=fn):
+                return fn(q, k, v)
 
             got = kernel()
-            ref = va.vit_attention_plain(q, k, v, bool(bf16_exp))
+            ref = va.vit_attention_plain(q, k, v, *rounding)
             torch.cuda.synchronize()
             check(got.shape == ref.shape and got.dtype == torch.bfloat16,
-                  f"vit_attention: {got.shape} {got.dtype}")
-            check(bool(torch.isfinite(got).all()),
-                  "vit_attention: non-finite output")
+                  f"{label}: {got.shape} {got.dtype}")
+            check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
             err = (got.float() - ref.float()).abs().max().item()
-            check(err <= ATTN_TOL, f"vit_attention B={b} bf16_exp="
-                  f"{bf16_exp}: abs err {err:.3g} > {ATTN_TOL}")
+            check(err <= ATTN_TOL, f"{label} B={b} N={n} Dh={dh}: abs err "
+                  f"{err:.3g} > {ATTN_TOL}")
             row = {"max_abs_err": err,
                    "max_abs_out": ref.float().abs().max().item(),
                    "ms": _time_ms(kernel),
                    "plain_ms": _time_ms(
-                       lambda: va.vit_attention_plain(q, k, v,
-                                                      bool(bf16_exp)))}
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            row["library_ms"] = _time_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt))
+                       lambda: va.vit_attention_plain(q, k, v, *rounding)),
+                   "library_ms": sdpa_ms}
             row["bound_ms"], row["bound_by"] = attention_bound(b, n, h, dh)
-            results[("vit_attention", bf16_exp, b)] = row
-            say(f"kernel vit_attention B={b} N={n} H={h} Dh={dh} "
-                f"bf16_exp={bf16_exp}: " + json.dumps(row))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            results[("vit_attention", label, b, dh)] = row
+            say(f"kernel {label} B={b} N={n} H={h} Dh={dh}: "
+                + json.dumps(row))
 
 
 def phase_kernels():
@@ -649,7 +670,7 @@ def main() -> int:
     for name in ("clb_pt", "logbinomial_depth", "vit_attention",
                  "clb_logbinomial_depth"):
         if name == "vit_attention":
-            r = kres[("vit_attention", 1, 4)]
+            r = kres[("vit_attention", "vit_attention", 4, 64)]
         else:
             r = kres[(name, "bfloat16", 4, "nchw-view")]
         kernels.append({"name": name, "route": "cuda",
@@ -659,6 +680,7 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
+                        "bound_share": r["bound_share"],
                         "library_ms": r["library_ms"]})
     say(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

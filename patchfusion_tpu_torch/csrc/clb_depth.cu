@@ -4,7 +4,7 @@
 //
 // Replaces: patchfusion_tpu/ops/pallas_head.py::clb_logbinomial_depth
 // (Pallas kernel _clb_depth_impl). Per output pixel (b, y, x):
-//   (p, t) = the ConditionalLogBinomial MLP (pf::clb_pixel)
+//   (p, t) = the ConditionalLogBinomial MLP (as in csrc/clb_pt.cu)
 //   depth  = sum_k softmax(log-binomial(p, t))[k] up(centers)[k]
 //            (pf::logbinom_depth_pixel)
 // writing only the (B, OH, OW) f32 depth: p and t stay in registers, the
@@ -19,33 +19,40 @@
 // FMA issue and shared-memory weight reads, not by HBM. Fusing saves the
 // 8 B per pixel of p and t written and read back, and one launch.
 //
-// Design: clb_pt's (one thread per pixel, grid-stride loop over a grid that
-// fills the SMs once, the 52 KB of f32 weights staged in shared memory once
-// per block, 80 accumulators in registers) with logbinomial_depth's K-entry
-// c0 table beside the weights in shared memory and its two-pass softmax as
-// the epilogue. All three maps are read through their strides (NCHW tensors
-// as permuted views), and keep the bf16 rounding of the bottleneck and the
-// GELU that clb_pt reproduces.
+// Design: for bf16 inputs (the main path's dtype) the tensor-core body of
+// the bf16 clb_pt kernel (csrc/clb_tc.cuh: the condition projected at low
+// resolution, W1 as bf16 hi + lo), with logbinomial_depth's K-entry c0
+// table beside its buffers in shared memory and pf::logbinom_depth_pixel as
+// the epilogue, so depth_fused computes exactly clb_pt then
+// logbinomial_depth. For f32 inputs, clb_pt's first design (one thread per
+// pixel, grid-stride loop over a grid that fills the SMs once, the 52 KB of
+// f32 weights staged in shared memory once per block, 80 accumulators in
+// registers) with the same epilogue. All three maps are read through their
+// strides (NCHW tensors as permuted views).
 
+#include "clb_tc.cuh"
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
-template <typename T>
+// f32 inputs: one thread per pixel.
 __global__ void __launch_bounds__(kThreads)
-clb_depth_kernel(const T* __restrict__ last, const T* __restrict__ cond,
-                 const T* __restrict__ centers,
-                 const float* __restrict__ w1, const float* __restrict__ b1,
-                 const float* __restrict__ w2, const float* __restrict__ b2,
-                 float* __restrict__ out, int B, int OH, int OW, int IH,
-                 int IW, int Cin, int Cc, int K, pf::Strides4 ls,
-                 pf::Strides4 cs, pf::Strides4 zs, float p_eps,
-                 float min_temp, float max_temp) {
+clb_depth_f32_kernel(const float* __restrict__ last,
+                     const float* __restrict__ cond,
+                     const float* __restrict__ centers,
+                     const float* __restrict__ w1,
+                     const float* __restrict__ b1,
+                     const float* __restrict__ w2,
+                     const float* __restrict__ b2, float* __restrict__ out,
+                     int B, int OH, int OW, int IH, int IW, int Cin, int Cc,
+                     int K, pf::Strides4 ls, pf::Strides4 cs,
+                     pf::Strides4 zs, float p_eps, float min_temp,
+                     float max_temp) {
   extern __shared__ float smem[];
   const pf::ClbWeights w =
-      pf::clb_stage_weights<T>(smem, w1, b1, w2, b2, Cin + Cc);
+      pf::clb_stage_weights<float>(smem, w1, b1, w2, b2, Cin + Cc);
   float* c0 = smem + pf::clb_smem_floats(Cin + Cc);
   pf::fill_log_binom_c0(c0, K);
 
@@ -56,34 +63,33 @@ clb_depth_kernel(const T* __restrict__ last, const T* __restrict__ cond,
     const int x = static_cast<int>(idx % OW);
     const int y = static_cast<int>((idx / OW) % OH);
     const int b = static_cast<int>(idx / (static_cast<long long>(OW) * OH));
-    const float2 pt = pf::clb_pixel<T>(last, cond, ls, cs, w, b, y, x, OH,
-                                       OW, IH, IW, Cin, Cc, p_eps);
-    out[idx] = pf::logbinom_depth_pixel<T>(pt.x, pt.y, centers, zs, c0, b,
-                                           y, x, OH, OW, IH, IW, K,
-                                           min_temp, max_temp);
+    const float2 pt = pf::clb_pixel<float>(last, cond, ls, cs, w, b, y, x,
+                                           OH, OW, IH, IW, Cin, Cc, p_eps);
+    out[idx] = pf::logbinom_depth_pixel<float>(pt.x, pt.y, centers, zs, c0,
+                                               b, y, x, OH, OW, IH, IW, K,
+                                               min_temp, max_temp);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* last, const void* cond, const void* centers,
-                   const void* w1, const void* b1, const void* w2,
-                   const void* b2, void* out, int B, int OH, int OW, int IH,
-                   int IW, int Cin, int Cc, int K, pf::Strides4 ls,
-                   pf::Strides4 cs, pf::Strides4 zs, float p_eps,
-                   float min_temp, float max_temp, int device,
-                   cudaStream_t stream) {
+cudaError_t launch_f32(const void* last, const void* cond,
+                       const void* centers, const void* w1, const void* b1,
+                       const void* w2, const void* b2, void* out, int B,
+                       int OH, int OW, int IH, int IW, int Cin, int Cc, int K,
+                       pf::Strides4 ls, pf::Strides4 cs, pf::Strides4 zs,
+                       float p_eps, float min_temp, float max_temp,
+                       int device, cudaStream_t stream) {
   const size_t smem =
       (static_cast<size_t>(pf::clb_smem_floats(Cin + Cc)) + K) *
       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      clb_depth_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      clb_depth_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, clb_depth_kernel<T>, kThreads, smem);
+      &per_sm, clb_depth_f32_kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long total = static_cast<long long>(B) * OH * OW;
@@ -91,10 +97,10 @@ cudaError_t launch(const void* last, const void* cond, const void* centers,
   long long blocks = (total + kThreads - 1) / kThreads;
   const long long resident = static_cast<long long>(sms) * per_sm;
   if (blocks > resident) blocks = resident;
-  clb_depth_kernel<T>
+  clb_depth_f32_kernel
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-          static_cast<const T*>(last), static_cast<const T*>(cond),
-          static_cast<const T*>(centers), static_cast<const float*>(w1),
+          static_cast<const float*>(last), static_cast<const float*>(cond),
+          static_cast<const float*>(centers), static_cast<const float*>(w1),
           static_cast<const float*>(b1), static_cast<const float*>(w2),
           static_cast<const float*>(b2), static_cast<float*>(out), B, OH, OW,
           IH, IW, Cin, Cc, K, ls, cs, zs, p_eps, min_temp, max_temp);
@@ -125,12 +131,18 @@ extern "C" int pf_clb_logbinomial_depth(
   const pf::Strides4 zs{zb, zy, zx, zc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (inputs_bf16)
-    err = launch<__nv_bfloat16>(last, cond, centers, w1, b1, w2, b2, out, B,
-                                OH, OW, IH, IW, Cin, Cc, K, ls, cs, zs, p_eps,
-                                min_temp, max_temp, device, s);
+    err = pf::tc::launch<true>(
+        static_cast<const __nv_bfloat16*>(last),
+        static_cast<const __nv_bfloat16*>(cond),
+        static_cast<const float*>(w1), static_cast<const float*>(b1),
+        static_cast<const float*>(w2), static_cast<const float*>(b2), nullptr,
+        nullptr, B, OH, OW, IH, IW, Cin, Cc, ls, cs, p_eps,
+        pf::tc::DepthArgs{static_cast<const __nv_bfloat16*>(centers), zs, K,
+                          min_temp, max_temp, static_cast<float*>(out)},
+        device, s);
   else
-    err = launch<float>(last, cond, centers, w1, b1, w2, b2, out, B, OH, OW,
-                        IH, IW, Cin, Cc, K, ls, cs, zs, p_eps, min_temp,
-                        max_temp, device, s);
+    err = launch_f32(last, cond, centers, w1, b1, w2, b2, out, B, OH, OW, IH,
+                     IW, Cin, Cc, K, ls, cs, zs, p_eps, min_temp, max_temp,
+                     device, s);
   return static_cast<int>(err);
 }

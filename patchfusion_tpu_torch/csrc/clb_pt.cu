@@ -2,60 +2,67 @@
 //
 // Replaces: patchfusion_tpu/ops/pallas_head.py::clb_pt (Pallas kernel
 // _clb_pt_impl). Per output pixel (b, y, x):
-//   cu  = bilinear align_corners=True upsample of cond_lo (B,IH,IW,Cc)
-//   h   = last_cat[b,y,x,:] . W1[:Cin] + cu . W1[Cin:] + b1     (H = 80)
+//   h   = last_cat[b,y,x,:] . W1[:Cin] + up(cond_lo . W1[Cin:])[b,y,x] + b1
+//         (H = 80; up = bilinear align_corners=True from IH x IW)
 //   g   = tanh-GELU(h) at the input dtype
 //   s   = softplus(g . W2 + b2)                                 (4 values)
 //   p   = (s0+eps) / (s0+s1+2eps),  t = (s2+eps) / (s2+s3+2eps)
 // writing only p and t; the full-resolution 80-channel bottleneck never
 // reaches memory.
 //
-// Order of the condition term: this kernel upsamples cond_lo first and then
-// projects it through W1[Cin:], all inside the kernel (the TPU kernel
-// projects at low resolution and then upsamples; the two are equal up to
-// float reassociation because both maps are linear). One pass, one launch,
-// no scratch tensor.
+// What bounds it on the H100: it reads Cin = 33 bf16 per output pixel and
+// 128 per low-resolution pixel and writes 8 bytes per output pixel: 128 MB
+// at B = 4, 392x518 from 224x296, ~38 us at 3.35 TB/s. Its products, with
+// the condition projected at low resolution, are ~13 GFLOP, ~13 us on the
+// tensor cores. So it is bound by bytes, with the per-pixel epilogue
+// (lerp of 80 channels, GELU, W2, softplus) on the FMA pipes beside.
 //
-// What bounds it on the H100: per pixel it reads Cin = 33 inputs (66 B in
-// bf16), four corner rows of Cc = 128 condition channels (mostly shared
-// with neighbouring pixels through L1) and writes 8 B, while it does
-// (33 + 128) x 80 + 80 x 4 ~ 13 k FMAs. That is ~100 FLOP per byte of
-// unique traffic: below the tensor-core ridge (~295 FLOP/B), but above the
-// ~20 FLOP/B ridge of the plain fp32 FMA pipes this simple kernel uses, so
-// it is bound by FMA issue and shared-memory weight reads. Moving the
-// products onto tensor cores (mma/wgmma over pixel tiles) is the later
-// optimisation.
-//
-// Design: one thread per output pixel in a grid-stride loop over a grid
-// sized to fill the SMs once, so each block stages the 52 KB of f32
-// weights into shared memory once. Each thread keeps its 80 accumulators
-// in registers; every weight read is the same address across the warp (a
-// shared-memory broadcast). Inputs are read through their strides, so the
-// model passes its NCHW tensors as permuted views: for each channel,
-// neighbouring threads (neighbouring x) read neighbouring addresses.
-// For bf16 inputs h and GELU(h) are rounded to bf16 and W2 is used in bf16
-// with f32 accumulation, as the TPU kernel does at the input dtype. The
-// per-pixel body is pf::clb_pixel (common.cuh), shared with
-// csrc/clb_depth.cu.
+// bf16 design (the main path's inputs):
+//   * persistent blocks of 8 warps, each staging the weights once: W1 split
+//     into bf16 hi + lo parts (the TPU kernel multiplies by an f32 W1; two
+//     bf16 products keep ~16 bits of it), as mma B operands laid out
+//     (hidden, input channel), and W2 rounded to bf16 like the TPU kernel's
+//     W2 at the input dtype.
+//   * per output tile of 8 rows x 32 columns: its low-resolution footprint
+//     of cond_lo, 128 channels, is staged channel-major (each channel's row
+//     is contiguous along x in the permuted-NCHW view, so the loads
+//     coalesce) and projected through W1[Cin:] on the tensor cores
+//     (mma.sync m16n8k16, A from ldmatrix.trans) into an f32 (footprint
+//     pixel, 80) array: the TPU kernel's order (project, then lerp), so the
+//     128 x 80 product runs on the low-resolution pixels only.
+//   * the tile's last_cat pixels, Cin channels zero-padded to 48, go
+//     through W1[:Cin] the same way; each output pixel then adds the lerp
+//     of its four corners' 80 projected channels and b1 in the mma
+//     accumulator layout, rounds to bf16, applies tanh-GELU with
+//     tanh.approx.f32 (its error lies under the bf16 rounding that
+//     follows), rounds again, and multiplies by W2 as one more mma (N = 4
+//     padded to 8) whose A fragments are the accumulators repacked.
+//   * softplus, p and t as pf::clb_pixel does.
+// f32 inputs (not on the main path) keep the first design: one thread per
+// pixel with pf::clb_pixel (common.cuh), shared with csrc/clb_depth.cu.
 
+#include "clb_tc.cuh"
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+// ---------------------------------------------------------------------------
+// f32: one thread per pixel
+// ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-clb_pt_kernel(const T* __restrict__ last, const T* __restrict__ cond,
-              const float* __restrict__ w1, const float* __restrict__ b1,
-              const float* __restrict__ w2, const float* __restrict__ b2,
-              float* __restrict__ p_out, float* __restrict__ t_out, int B,
-              int OH, int OW, int IH, int IW, int Cin, int Cc,
-              pf::Strides4 ls, pf::Strides4 cs, float p_eps) {
+constexpr int kF32Threads = 128;
+
+__global__ void __launch_bounds__(kF32Threads)
+clb_pt_f32_kernel(const float* __restrict__ last,
+                  const float* __restrict__ cond,
+                  const float* __restrict__ w1, const float* __restrict__ b1,
+                  const float* __restrict__ w2, const float* __restrict__ b2,
+                  float* __restrict__ p_out, float* __restrict__ t_out, int B,
+                  int OH, int OW, int IH, int IW, int Cin, int Cc,
+                  pf::Strides4 ls, pf::Strides4 cs, float p_eps) {
   extern __shared__ float smem[];
   const pf::ClbWeights w =
-      pf::clb_stage_weights<T>(smem, w1, b1, w2, b2, Cin + Cc);
-
+      pf::clb_stage_weights<float>(smem, w1, b1, w2, b2, Cin + Cc);
   const long long total = static_cast<long long>(B) * OH * OW;
   for (long long idx =
            static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -63,53 +70,55 @@ clb_pt_kernel(const T* __restrict__ last, const T* __restrict__ cond,
     const int x = static_cast<int>(idx % OW);
     const int y = static_cast<int>((idx / OW) % OH);
     const int b = static_cast<int>(idx / (static_cast<long long>(OW) * OH));
-    const float2 pt = pf::clb_pixel<T>(last, cond, ls, cs, w, b, y, x, OH,
-                                       OW, IH, IW, Cin, Cc, p_eps);
+    const float2 pt = pf::clb_pixel<float>(last, cond, ls, cs, w, b, y, x, OH,
+                                           OW, IH, IW, Cin, Cc, p_eps);
     p_out[idx] = pt.x;
     t_out[idx] = pt.y;
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* last, const void* cond, const void* w1,
-                   const void* b1, const void* w2, const void* b2,
-                   void* p_out, void* t_out, int B, int OH, int OW, int IH,
-                   int IW, int Cin, int Cc, pf::Strides4 ls,
-                   pf::Strides4 cs, float p_eps, int device,
-                   cudaStream_t stream) {
+cudaError_t launch_f32(const float* last, const float* cond, const float* w1,
+                       const float* b1, const float* w2, const float* b2,
+                       float* p_out, float* t_out, int B, int OH, int OW,
+                       int IH, int IW, int Cin, int Cc, pf::Strides4 ls,
+                       pf::Strides4 cs, float p_eps, int device,
+                       cudaStream_t stream) {
   const size_t smem = pf::clb_smem_floats(Cin + Cc) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      clb_pt_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      clb_pt_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, clb_pt_kernel<T>, kThreads, smem);
+      &per_sm, clb_pt_f32_kernel, kF32Threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long total = static_cast<long long>(B) * OH * OW;
-  if (total == 0) return cudaSuccess;
-  long long blocks = (total + kThreads - 1) / kThreads;
+  long long blocks = (total + kF32Threads - 1) / kF32Threads;
   const long long resident = static_cast<long long>(sms) * per_sm;
   if (blocks > resident) blocks = resident;
-  clb_pt_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(last), static_cast<const T*>(cond),
-      static_cast<const float*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(w2), static_cast<const float*>(b2),
-      static_cast<float*>(p_out), static_cast<float*>(t_out), B, OH, OW, IH,
-      IW, Cin, Cc, ls, cs, p_eps);
+  clb_pt_f32_kernel<<<static_cast<unsigned>(blocks), kF32Threads, smem,
+                      stream>>>(last, cond, w1, b1, w2, b2, p_out, t_out, B,
+                                OH, OW, IH, IW, Cin, Cc, ls, cs, p_eps);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// Shared memory the bf16 kernels need for these sizes and K bins (0 for
+// clb_pt), in bytes; the wrappers check it against the card's 227 KB.
+extern "C" long long pf_clb_tc_smem(int OH, int OW, int IH, int IW, int K) {
+  return static_cast<long long>(pf::tc::smem_bytes(OH, OW, IH, IW, K));
+}
+
 // C entry point. last_cat (B, OH, OW, Cin) and cond_lo (B, IH, IW, Cc) are
 // device tensors of one dtype, float32 (inputs_bf16 = 0) or bfloat16 (= 1),
 // with the given element strides; w1 (Cin+Cc, hidden), b1 (hidden,),
 // w2 (hidden, 4) and b2 (4,) are contiguous float32; p_out and t_out are
-// contiguous (B, OH, OW) float32. Returns the cudaError_t of the launch.
+// contiguous (B, OH, OW) float32. bfloat16 takes Cin <= 48, Cc = 128 and
+// an upsample (IH <= OH, IW <= OW). Returns the cudaError_t of the launch.
 extern "C" int pf_clb_pt(const void* last, const void* cond, const void* w1,
                          const void* b1, const void* w2, const void* b2,
                          void* p_out, void* t_out, int inputs_bf16, int B,
@@ -124,12 +133,21 @@ extern "C" int pf_clb_pt(const void* last, const void* cond, const void* w1,
   const pf::Strides4 ls{lb, ly, lx, lc};
   const pf::Strides4 cs{cb, cy, cx, cc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* w1f = static_cast<const float*>(w1);
+  const float* b1f = static_cast<const float*>(b1);
+  const float* w2f = static_cast<const float*>(w2);
+  const float* b2f = static_cast<const float*>(b2);
+  float* po = static_cast<float*>(p_out);
+  float* to = static_cast<float*>(t_out);
   if (inputs_bf16)
-    err = launch<__nv_bfloat16>(last, cond, w1, b1, w2, b2, p_out, t_out, B,
-                                OH, OW, IH, IW, Cin, Cc, ls, cs, p_eps,
-                                device, s);
+    err = pf::tc::launch<false>(static_cast<const __nv_bfloat16*>(last),
+                                static_cast<const __nv_bfloat16*>(cond), w1f,
+                                b1f, w2f, b2f, po, to, B, OH, OW, IH, IW, Cin,
+                                Cc, ls, cs, p_eps, pf::tc::DepthArgs{}, device,
+                                s);
   else
-    err = launch<float>(last, cond, w1, b1, w2, b2, p_out, t_out, B, OH, OW,
-                        IH, IW, Cin, Cc, ls, cs, p_eps, device, s);
+    err = launch_f32(static_cast<const float*>(last),
+                     static_cast<const float*>(cond), w1f, b1f, w2f, b2f, po,
+                     to, B, OH, OW, IH, IW, Cin, Cc, ls, cs, p_eps, device, s);
   return static_cast<int>(err);
 }

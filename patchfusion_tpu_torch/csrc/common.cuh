@@ -94,9 +94,24 @@ struct Corners {
 
 constexpr int kClbHidden = 80;  // (33 + 128) // 2, fixed by the head's widths
 
-__device__ __forceinline__ float gelu_tanh(float x) {
+// tanh-GELU at T: float takes the accurate tanhf; bf16 (the kernels of
+// csrc/clb_tc.cuh) MUFU's tanh.approx.f32, whose error lies under the bf16
+// rounding of the result.
+template <typename T>
+__device__ __forceinline__ float gelu_tanh(float x);
+template <>
+__device__ __forceinline__ float gelu_tanh<float>(float x) {
   const float k = 0.7978845608028654f;  // sqrt(2 / pi)
   return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
+}
+template <>
+__device__ __forceinline__ float gelu_tanh<__nv_bfloat16>(float x) {
+  const float k = 0.7978845608028654f;
+  float th;
+  asm("tanh.approx.f32 %0, %1;"
+      : "=f"(th)
+      : "f"(k * (x + 0.044715f * x * x * x)));
+  return 0.5f * x * (1.f + th);
 }
 
 __device__ __forceinline__ float softplus(float x) {
@@ -165,7 +180,7 @@ __device__ __forceinline__ float2 clb_pixel(
 #pragma unroll
   for (int j = 0; j < kClbHidden; ++j) {
     const float g =
-        round_to<T>(gelu_tanh(round_to<T>(h[j] + w.b1[j])));
+        round_to<T>(gelu_tanh<T>(round_to<T>(h[j] + w.b1[j])));
     o0 = fmaf(g, w.w2[4 * j + 0], o0);
     o1 = fmaf(g, w.w2[4 * j + 1], o1);
     o2 = fmaf(g, w.w2[4 * j + 2], o2);

@@ -197,8 +197,9 @@ class ConditionalLogBinomial(nn.Module):
     def params_pt_fused(self, x_hi, cond_lo
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """params_pt with the condition at its low resolution, through the
-        clb_pt kernel (plain twin on the CPU): the kernel upsamples the
-        condition itself and never writes the full-resolution bottleneck.
+        clb_pt kernel (plain twin on the CPU): the kernel projects the
+        condition at its low resolution, upsamples the projection itself
+        and never writes the full-resolution bottleneck.
         The NCHW tensors go in as permuted channels-last views (no copy)."""
         return fused_head.clb_pt(
             x_hi.permute(0, 2, 3, 1), cond_lo.permute(0, 2, 3, 1),

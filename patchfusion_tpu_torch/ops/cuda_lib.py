@@ -5,6 +5,8 @@ The kernels live in `patchfusion_tpu_torch/csrc/*.cu`. At first use
 started together, and links the objects into one shared library with a
 plain C interface, cached under `patchfusion_tpu_torch/_build/<hash of the
 sources and flags>/`; `load_kernels` loads it with ctypes once per process.
+The library links the CUDA driver (`-lcuda`) for the attention kernel's
+TMA tensor maps (`cuTensorMapEncodeTiled`).
 The helpers below are the argument checks the kernel wrappers
 (`ops/fused_head.py`, `ops/vit_attention.py`) share.
 """
@@ -25,6 +27,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the driver API, for cuTensorMapEncodeTiled
+LINK_FLAGS = ("-lcuda",)
 LIB_NAME = "libpf_kernels.so"
 
 _lib = None
@@ -54,7 +58,7 @@ def build_kernels() -> Path:
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
             h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     out_dir = BUILD_DIR / h.hexdigest()[:16]
     lib = out_dir / LIB_NAME
     if lib.is_file():
@@ -81,7 +85,7 @@ def build_kernels() -> Path:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-4000:])
         tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
         cmd = [nvcc, "-shared", "-o", str(tmp),
-               *(str(obj) for _, obj, _ in jobs)]
+               *(str(obj) for _, obj, _ in jobs), *LINK_FLAGS]
         res = subprocess.run(cmd, capture_output=True, text=True,
                              check=False)
         log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
@@ -113,10 +117,12 @@ def load_kernels() -> ctypes.CDLL:
         lib.pf_clb_logbinomial_depth.argtypes = (
             [vp] * 8 + [i32] * 10 + [i64] * 12 + [f32] * 3 + [i32, vp])
         lib.pf_vit_attention.argtypes = (
-            [vp] * 4 + [i32] * 4 + [i64] * 9 + [f32, i32, i32, vp])
+            [vp] * 4 + [i32] * 4 + [i64] * 9 + [f32] + [i32] * 3 + [vp])
         for fn in (lib.pf_logbinomial_depth, lib.pf_clb_pt,
                    lib.pf_clb_logbinomial_depth, lib.pf_vit_attention):
             fn.restype = i32
+        lib.pf_clb_tc_smem.argtypes = [i32] * 5
+        lib.pf_clb_tc_smem.restype = i64
         _lib = lib
     return _lib
 

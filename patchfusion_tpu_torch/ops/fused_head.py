@@ -169,6 +169,8 @@ def clb_pt(last_cat: torch.Tensor, cond_lo: torch.Tensor, w1: torch.Tensor,
     weights = _check_clb(last_cat, cond_lo, w1, b1, w2, b2)
     b, oh, ow, cin = last_cat.shape
     _, ih, iw, cc = cond_lo.shape
+    if last_cat.dtype == torch.bfloat16:
+        _check_clb_bf16(oh, ow, ih, iw, cin, cc, 0)
     p = torch.empty((b, oh, ow), dtype=torch.float32, device=last_cat.device)
     t = torch.empty_like(p)
     err = load_kernels().pf_clb_pt(
@@ -205,6 +207,33 @@ def _check_clb(last_cat, cond_lo, w1, b1, w2, b2) -> Tuple[torch.Tensor, ...]:
     if (cin + cc) * hidden * 4 > 200 * 1024:  # W1 is staged in shared memory
         raise ValueError(f"input width {cin + cc} too large for the kernel")
     return tuple(w.to(torch.float32).contiguous() for w in (w1, b1, w2, b2))
+
+
+CLB_BF16_MAX_CIN = 48   # the bf16 clb_pt kernel's padded input channels
+CLB_BF16_CC = 128       # and its condition channels
+SMEM_LIMIT = 227 * 1024  # shared memory one block may use on the H100
+
+
+def _check_clb_bf16(oh: int, ow: int, ih: int, iw: int, cin: int, cc: int,
+                    k: int) -> None:
+    """What the bf16 clb kernels (clb_pt, and with k bins
+    clb_logbinomial_depth) take beyond _check_clb: up to 48 input channels,
+    128 condition channels, and an upsample (IH <= OH, IW <= OW) steep
+    enough that an 8 x 32 output tile's low-resolution footprint fits in
+    shared memory beside the weights (upsampling by about 1.2 or more; the
+    head upsamples by ~1.75)."""
+    if not 0 < cin <= CLB_BF16_MAX_CIN or cc != CLB_BF16_CC:
+        raise ValueError(f"the bf16 clb_pt kernel takes 1-{CLB_BF16_MAX_CIN} "
+                         f"input and {CLB_BF16_CC} condition channels, got "
+                         f"{cin} and {cc}")
+    if ih > oh or iw > ow:
+        raise ValueError(f"the bf16 clb_pt kernel upsamples; got {ih}x{iw} "
+                         f"-> {oh}x{ow}")
+    need = load_kernels().pf_clb_tc_smem(oh, ow, ih, iw, k)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"upsample {ih}x{iw} -> {oh}x{ow} too shallow for "
+                         f"the bf16 clb_pt kernel: its tile footprint needs "
+                         f"{need} bytes of shared memory")
 
 
 # ---------------------------------------------------------------------------
@@ -255,6 +284,8 @@ def clb_logbinomial_depth(last_cat: torch.Tensor, cond_lo: torch.Tensor,
                          f" K) like cond_lo, got {tuple(centers.shape)}")
     if not 0 < k <= 4096:  # the c0 table sits beside W1 in shared memory
         raise ValueError(f"unsupported bin count {k}")
+    if last_cat.dtype == torch.bfloat16:
+        _check_clb_bf16(oh, ow, ih, iw, cin, cc, k)
     out = torch.empty((b, oh, ow), dtype=torch.float32,
                       device=last_cat.device)
     err = load_kernels().pf_clb_logbinomial_depth(

@@ -4,12 +4,20 @@ patchfusion_tpu/ops/pallas_attention.py::vit_attention,
 
 The three TPU kernels compute one function and differ only in TPU tricks,
 so the three wrappers here launch one hand-written kernel
-(`csrc/vit_attention.cu`) and differ only in where they round:
+(`csrc/vit_attention.cu`) and differ only in where they round, by two
+flags:
 
-  * `vit_attention` (bf16_exp=True): bf16 logits and a bf16 (s - m) before
-    exp, as _attn_kernel's bf16 N^2 stage and the JAX einsum path do;
-  * `vit_attention_blocked` (bf16_exp=False): f32 logits and exp;
-  * `vit_attention_mxsum(bf16_exp)`: either.
+  | wrapper                               | round_logits | round_diff |
+  |---------------------------------------|--------------|------------|
+  | `vit_attention`                       | on           | on         |
+  | `vit_attention_blocked`               | off          | off        |
+  | `vit_attention_mxsum(bf16_exp=False)` | off          | off        |
+  | `vit_attention_mxsum(bf16_exp=True)`  | off          | on         |
+
+round_logits rounds the f32 logits off the accumulator to bf16
+(_attn_kernel's bf16 N^2 stage and the JAX einsum path); round_diff rounds
+s - m to bf16 before exp (_attn_kernel, and _attn_kernel_mxsum's
+bf16_exp, which keeps the logits in f32).
 
 Each wrapper keeps the JAX signature: q, k and v are (B, N, H, Dh)
 bfloat16, and the result is (B, N, H, Dh) bfloat16. For CPU tensors it
@@ -19,6 +27,8 @@ to the twin. `LAUNCHES["vit_attention"]` counts the kernel's launches.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -31,6 +41,7 @@ LAUNCHES = {"vit_attention": 0}
 MAX_HEAD_DIM = 128  # the widest head csrc/vit_attention.cu is compiled for
 
 
+@functools.lru_cache(maxsize=None)
 def bf16_scale(dh: int) -> float:
     """Dh^-0.5 rounded to bf16: JAX multiplies a bf16 array by a Python
     float in bf16 (weak typing), so the scale itself is rounded first."""
@@ -47,17 +58,19 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def vit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        bf16_exp: bool = True) -> torch.Tensor:
+                        round_logits: bool = True,
+                        round_diff: bool = True) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: the JAX package's bf16 einsum
     attention (patchfusion_tpu/models/dinov2.py:85-98), rounding where it
-    rounds.
+    rounds, with the kernel's two rounding flags.
 
-    bf16_exp=True is that function: the logits come out of an
+    The defaults are that function: the logits come out of an
     f32-accumulating bf16 matmul rounded to bf16, and (s - m) is taken in
-    bf16 before the f32 exp. bf16_exp=False keeps the logits and s - m in
-    f32 (_attn_kernel_blocked). Either way the probabilities are rounded to
-    bf16, the normaliser is their f32 sum, and the f32 P.V product is
-    divided by it before the one rounding to bf16.
+    bf16 before the f32 exp. round_logits=False keeps the logits in f32;
+    round_diff=False keeps s - m in f32 (_attn_kernel_blocked with both
+    off, _attn_kernel_mxsum(bf16_exp=True) with only round_diff). Always the
+    probabilities are rounded to bf16, the normaliser is their f32 sum, and
+    the f32 P.V product is divided by it before the one rounding to bf16.
     """
     b, n, h, dh = q.shape
 
@@ -65,8 +78,10 @@ def vit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return x.transpose(1, 2).reshape(b * h, n, dh)
 
     qs, kt = heads(q * bf16_scale(dh)), heads(k).transpose(1, 2)
-    s = torch.bmm(qs, kt) if bf16_exp else _bmm_f32(qs, kt)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(torch.bfloat16)
+    s = torch.bmm(qs, kt) if round_logits else _bmm_f32(qs, kt)
+    d = s - s.amax(dim=-1, keepdim=True)
+    d = d.to(torch.bfloat16) if round_diff else d.float()
+    p = torch.exp(d).to(torch.bfloat16)
     norm = p.sum(dim=-1, keepdim=True, dtype=torch.float32)
     o = (_bmm_f32(p, heads(v)) / norm).to(q.dtype)
     return o.reshape(b, h, n, dh).transpose(1, 2)
@@ -86,7 +101,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"head width {dh} is not a multiple of 16 up to "
                          f"{MAX_HEAD_DIM}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        # rows are read as 16-byte vectors along a contiguous Dh
+        # the TMA tensor maps take byte strides that are multiples of 16
+        # and a 16-byte aligned start, over a contiguous Dh
         if (t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3])
                 or t.data_ptr() % 16):
             raise ValueError(
@@ -96,16 +112,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            bf16_exp: bool) -> torch.Tensor:
+            round_logits: bool, round_diff: bool) -> torch.Tensor:
     if on_cpu(q, k, v):
-        return vit_attention_plain(q, k, v, bf16_exp)
+        return vit_attention_plain(q, k, v, round_logits, round_diff)
     _check(q, k, v)
     b, n, h, dh = q.shape
     out = torch.empty((b, n, h, dh), dtype=torch.bfloat16, device=q.device)
     err = load_kernels().pf_vit_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, h,
         dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        bf16_scale(dh), int(bf16_exp), q.device.index, stream(q.device))
+        bf16_scale(dh), int(round_logits), int(round_diff), q.device.index,
+        stream(q.device))
     raise_on(err, "vit_attention")
     LAUNCHES["vit_attention"] += 1
     return out
@@ -116,7 +133,7 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor,
     """(B, N, H, Dh) bf16 self-attention, no mask, with _attn_kernel's
     rounding (bf16 logits, bf16 s - m before exp): the einsum path's
     function. Strided views such as qkv[:, :, i] go in without a copy."""
-    return _launch(q, k, v, bf16_exp=True)
+    return _launch(q, k, v, round_logits=True, round_diff=True)
 
 
 def vit_attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -124,19 +141,19 @@ def vit_attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """vit_attention with f32 logits and exp (_attn_kernel_blocked).
 
     block_rows is the TPU kernel's query-row block, a VMEM tile size with no
-    counterpart on the card (the kernel's query tile is 64 rows). The JAX
+    counterpart on the card (the kernel picks its own query tile). The JAX
     function halves it until it divides N rounded up to 128, which any
     positive value does; it is checked for that and otherwise not used.
     """
     if block_rows < 1:
         raise ValueError(f"block_rows must be positive, got {block_rows}")
-    return _launch(q, k, v, bf16_exp=False)
+    return _launch(q, k, v, round_logits=False, round_diff=False)
 
 
 def vit_attention_mxsum(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bf16_exp: bool = False) -> torch.Tensor:
     """vit_attention with the normaliser summed from the bf16 probabilities
     (the TPU kernel rides it on the P.V matmul; this kernel always does).
-    bf16_exp=True rounds as vit_attention does; the TPU kernel rounds only
-    s - m there, one bf16 rounding of the logits apart."""
-    return _launch(q, k, v, bf16_exp=bool(bf16_exp))
+    The logits stay in f32; bf16_exp=True rounds s - m to bf16 before exp,
+    as _attn_kernel_mxsum does."""
+    return _launch(q, k, v, round_logits=False, round_diff=bool(bf16_exp))

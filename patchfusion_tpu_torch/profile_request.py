@@ -7,9 +7,9 @@ bf16, seeded random weights), answers one warm-up request on a seeded
 2160x3840 image, then profiles one request with torch.profiler for each
 attention implementation (PF_ATTN_IMPL einsum, then pallas). For each it
 reports the wall time, the device busy time (the union of all kernel and
-memcpy intervals), the idle share of the device span, and the kernels that
-took the most device time, with their launch counts. Prints one JSON line
-and writes the same object to --out.
+memcpy intervals), the idle share of the device span, the kernels that
+took the most device time and the port's own kernels, with their launch
+counts. Prints one JSON line and writes the same object to --out.
 """
 
 from __future__ import annotations
@@ -33,6 +33,8 @@ ROOT = Path(__file__).resolve().parent.parent
 VITL_CONFIG = ROOT / ("configs/patchfusion_depthanything/"
                       "depthanything_vitl_patchfusion_u4k.py")
 TOP = 15  # kernels listed per request
+# the port's own kernels (csrc/*.cu), listed whatever their rank
+PORT_KERNELS = ("vit_attention_kernel", "clb_", "logbinomial_depth")
 
 
 def _device_events(prof):
@@ -73,11 +75,14 @@ def profile(model, lr, hr, mode: str):
     for name, s, e in events:
         by_name[name][0] += e - s
         by_name[name][1] += 1
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
             "device_span_ms": span / 1e3, "idle_share": 1 - busy / span,
             "top_kernels": [{"name": n[:120], "ms": t / 1e3, "launches": c}
-                            for n, (t, c) in ranked]}
+                            for n, (t, c) in ranked[:TOP]],
+            "port_kernels": [{"name": n[:120], "ms": t / 1e3, "launches": c}
+                             for n, (t, c) in ranked
+                             if any(k in n for k in PORT_KERNELS)]}
 
 
 def main() -> int:

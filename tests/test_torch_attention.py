@@ -30,6 +30,13 @@ ATTN_ATOL = 2.5e-2
 # can flip one bf16 rounding, so the bound is one bf16 ulp of outputs below
 # 2; the kernels' twin-vs-Pallas differences above reach 7.8e-3
 EINSUM_ATOL = 8e-3
+# twin (logits in f32, s - m rounded to bf16) vs _attn_kernel_mxsum with
+# bf16_exp=True: measured 0 to 9.8e-4 over four seeds of the three shapes
+# (CPU), i.e. at most one bf16 rounding of a probability apart. 2e-3 is one
+# bf16 ulp of outputs in [0.25, 0.5), about half an ulp of the largest
+# outputs here; rounding the logits too (the earlier mapping) is 3.9e-3 to
+# 7.8e-3 off and fails it
+MXSUM_BF16_EXP_ATOL = 2e-3
 # bf16 model outputs, relative to max |value|; measured with
 # PF_ATTN_IMPL=pallas on both sides (CPU): DinoViT taps <= 2.1e-2, engine
 # m1 1.1e-2 (with the einsum attention: 1.0e-2 and 1.1e-2)
@@ -38,16 +45,18 @@ BF16_TOL = 3e-2
 # (b, n, h, dh): ragged N as in tests/test_pallas_attention.py, with head
 # widths the CUDA kernel takes (multiples of 16)
 SHAPES = [(2, 37, 2, 16), (1, 130, 4, 16), (1, 250, 2, 32)]
-# JAX kernel -> the twin's rounding (bf16_exp)
+# JAX kernel -> the twin's rounding (round_logits, round_diff)
 JAX_KERNELS = {
-    "vit_attention": (lambda q, k, v: pa.vit_attention(q, k, v), True),
+    "vit_attention": (lambda q, k, v: pa.vit_attention(q, k, v),
+                      (True, True)),
     "blocked_128": (lambda q, k, v: pa.vit_attention_blocked(q, k, v, 128),
-                    False),
+                    (False, False)),
     "blocked_64": (lambda q, k, v: pa.vit_attention_blocked(q, k, v, 64),
-                   False),
-    "mxsum": (lambda q, k, v: pa.vit_attention_mxsum(q, k, v), False),
+                   (False, False)),
+    "mxsum": (lambda q, k, v: pa.vit_attention_mxsum(q, k, v),
+              (False, False)),
     "mxsum_bf16_exp": (lambda q, k, v: pa.vit_attention_mxsum(
-        q, k, v, bf16_exp=True), True),
+        q, k, v, bf16_exp=True), (False, True)),
 }
 
 
@@ -66,18 +75,37 @@ def _both(arrays):
 @pytest.mark.parametrize("kernel", list(JAX_KERNELS))
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plain_matches_pallas_kernels(kernel, shape):
-    fn, bf16_exp = JAX_KERNELS[kernel]
+    fn, rounding = JAX_KERNELS[kernel]
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(shape))
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(fn(jq, jk, jv), np.float32)
-    got = va.vit_attention_plain(tq, tk, tv, bf16_exp)
+    got = va.vit_attention_plain(tq, tk, tv, *rounding)
     assert got.dtype == torch.bfloat16 and got.shape == tq.shape
     np.testing.assert_allclose(got.float().numpy(), want, atol=ATTN_ATOL)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
+def test_plain_rounds_as_mxsum_bf16_exp(shape):
+    """round_logits=False, round_diff=True is _attn_kernel_mxsum's
+    bf16_exp=True rounding, held to about one bf16 ulp."""
+    for seed in (0, 1):
+        (jq, jk, jv), (tq, tk, tv) = _both(_qkv(shape, seed=seed))
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(pa.vit_attention_mxsum(jq, jk, jv,
+                                                     bf16_exp=True),
+                              np.float32)
+        got = va.vit_attention_plain(tq, tk, tv, round_logits=False,
+                                     round_diff=True)
+        np.testing.assert_allclose(got.float().numpy(), want,
+                                   atol=MXSUM_BF16_EXP_ATOL)
+        coarse = va.vit_attention_plain(tq, tk, tv)
+        assert np.abs(coarse.float().numpy() - want).max() \
+            > MXSUM_BF16_EXP_ATOL
+
+
+@pytest.mark.parametrize("shape", SHAPES)
 def test_plain_is_the_einsum_attention(shape):
-    """vit_attention_plain(bf16_exp=True) is the JAX einsum path's function
+    """vit_attention_plain (both roundings on) is the JAX einsum path's function
     and the port's default bf16 attention."""
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(shape, seed=1))
     want = np.asarray(jax_dinov2.fused_attention(jq, jk, jv, impl="einsum"),
@@ -99,10 +127,13 @@ def test_wrappers_route_cpu_tensors_to_the_twin(monkeypatch):
     qkv = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (2, 37, 3, 2, 16)).astype(np.float32)).to(torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    exact = va.vit_attention_plain(q, k, v, bf16_exp=True)
-    f32_exp = va.vit_attention_plain(q, k, v, bf16_exp=False)
+    exact = va.vit_attention_plain(q, k, v)
+    f32_exp = va.vit_attention_plain(q, k, v, round_logits=False,
+                                     round_diff=False)
+    f32_logits = va.vit_attention_plain(q, k, v, round_logits=False)
     assert torch.equal(va.vit_attention(q, k, v), exact)
-    assert torch.equal(va.vit_attention_mxsum(q, k, v, bf16_exp=True), exact)
+    assert torch.equal(va.vit_attention_mxsum(q, k, v, bf16_exp=True),
+                       f32_logits)
     assert torch.equal(va.vit_attention_mxsum(q, k, v), f32_exp)
     assert torch.equal(va.vit_attention_blocked(q, k, v), f32_exp)
     assert torch.equal(dinov2.fused_attention(q, k, v, impl="pallas"), exact)

@@ -85,6 +85,38 @@ def test_kernels_match_twins(cuda, dtype, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nhwc", "nchw-view"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,oh,ow,ih,iw", [
+    (1, 45, 70, 26, 40),     # upsample ~1.75, as the head's
+    (4, 47, 61, 15, 20),     # upsample ~3.2
+    (1, 392, 518, 224, 296),  # the head's shape
+])
+def test_clb_pt_matches_twin(cuda, dtype, layout, b, oh, ow, ih, iw):
+    """clb_pt at output shapes that are not multiples of the bf16 kernel's
+    8 x 32 tiles and at upsample ratios below and above 2: within 2e-4 (f32)
+    and 2e-2 (bf16, which rounds the bottleneck and GELU) of the twin."""
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    rng = np.random.default_rng(oh)
+    last = _nhwc(rng.standard_normal((b, oh, ow, CIN), dtype=np.float32),
+                 dtype, cuda, layout)
+    cond = _nhwc(rng.standard_normal((b, ih, iw, CC), dtype=np.float32),
+                 dtype, cuda, layout)
+    ws = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32) * 0.1)
+          .to(cuda, dtype) for s in ((CIN + CC, HID), (HID,), (HID, 4),
+                                     (4,))]
+    before = fused_head.LAUNCHES["clb_pt"]
+    got_p, got_t = fused_head.clb_pt(last, cond, *ws)
+    ref_p, ref_t = fused_head.clb_pt_plain(last, cond, *ws)
+    torch.cuda.synchronize()
+    assert fused_head.LAUNCHES["clb_pt"] == before + 1
+    assert got_p.shape == (b, oh, ow) and got_p.dtype == torch.float32
+    assert bool(torch.isfinite(got_p).all() and torch.isfinite(got_t).all())
+    assert (got_p - ref_p).abs().max().item() <= tol
+    assert (got_t - ref_t).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     p = torch.rand(1, 8, 10, device=cuda)
     centers = torch.rand(1, 4, 5, 64, device=cuda)
@@ -105,6 +137,27 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                          *w)
     with pytest.raises(TypeError):  # centers in another dtype
         fused_head.clb_logbinomial_depth(last, cond, centers.double(), *w)
+    # the bf16 clb_pt kernel: 128 condition channels, up to 48 inputs, and
+    # an upsample steep enough for its tile footprint
+    bf = torch.bfloat16
+    w_bf = [x.to(bf) for x in w]
+    w64 = [torch.rand(s, device=cuda, dtype=bf) for s in ((97, 80), (80,),
+                                                          (80, 4), (4,))]
+    with pytest.raises(ValueError):  # 64 condition channels
+        fused_head.clb_pt(last.to(bf), cond[..., :64].to(bf), *w64)
+    w_wide = [torch.rand(s, device=cuda, dtype=bf) for s in ((178, 80),
+                                                             (80,), (80, 4),
+                                                             (4,))]
+    with pytest.raises(ValueError):  # 50 input channels
+        fused_head.clb_pt(torch.rand(1, 8, 10, 50, device=cuda, dtype=bf),
+                          cond.to(bf), *w_wide)
+    with pytest.raises(ValueError):  # a downsample
+        fused_head.clb_pt(last.to(bf), torch.rand(1, 16, 20, 128, device=cuda,
+                                                  dtype=bf), *w_bf)
+    with pytest.raises(ValueError):  # no upsample: the footprint is too big
+        fused_head.clb_pt(torch.rand(1, 64, 64, 33, device=cuda, dtype=bf),
+                          torch.rand(1, 64, 64, 128, device=cuda, dtype=bf),
+                          *w_bf)
 
 
 def _qkv(rng, b, n, h, dh, dev):
@@ -115,30 +168,51 @@ def _qkv(rng, b, n, h, dh, dev):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
+# wrapper -> the twin's rounding (round_logits, round_diff)
+ROUNDINGS = {
+    "vit_attention": (lambda q, k, v: vit_attention.vit_attention(q, k, v),
+                      (True, True)),
+    "blocked": (lambda q, k, v: vit_attention.vit_attention_blocked(
+        q, k, v, block_rows=128), (False, False)),
+    "mxsum_bf16_exp": (lambda q, k, v: vit_attention.vit_attention_mxsum(
+        q, k, v, bf16_exp=True), (False, True)),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bf16_exp", [True, False])
-@pytest.mark.parametrize("n,dh", [(37, 64), (130, 32), (250, 128),
-                                  (1037, 64)])
-def test_attention_kernel_matches_twin(cuda, n, dh, bf16_exp):
-    """Ragged N (not a multiple of the 64-row tiles), strided qkv views, one
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("n", [37, 130, 1037])
+@pytest.mark.parametrize("wrapper", list(ROUNDINGS))
+def test_attention_kernel_matches_twin(cuda, wrapper, n, dh, b):
+    """Ragged N (not a multiple of the 128-key tiles), strided qkv views,
+    both query tiles (B = 1 and 4 at N = 1037 pick 64 and 128 rows), one
     launch per call. The kernel rounds P to bf16 against its running max,
     the twin against the whole-row max, and they sum in another order:
     1e-2 absolute on outputs of |o| < ~1."""
-    q, k, v = _qkv(np.random.default_rng(n), 2, n, 3, dh, cuda)
+    fn, rounding = ROUNDINGS[wrapper]
+    q, k, v = _qkv(np.random.default_rng(n + dh), b, n, 3, dh, cuda)
     before = vit_attention.LAUNCHES["vit_attention"]
-    if bf16_exp:
-        got = vit_attention.vit_attention(q, k, v)
-    else:
-        got = vit_attention.vit_attention_mxsum(q, k, v, bf16_exp=False)
-    ref = vit_attention.vit_attention_plain(q, k, v, bf16_exp)
+    got = fn(q, k, v)
+    ref = vit_attention.vit_attention_plain(q, k, v, *rounding)
     torch.cuda.synchronize()
     assert got.shape == q.shape and got.dtype == torch.bfloat16
     assert got.is_contiguous()
+    assert bool(torch.isfinite(got).all())
     assert (got.float() - ref.float()).abs().max().item() <= 1e-2
     assert vit_attention.LAUNCHES["vit_attention"] == before + 1
-    blocked = vit_attention.vit_attention_blocked(q, k, v, block_rows=128)
-    ref = vit_attention.vit_attention_plain(q, k, v, bf16_exp=False)
-    assert (blocked.float() - ref.float()).abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_attention_kernel_grid_of_16_heads(cuda):
+    """The vitl heads at both batch sizes of the main path: B = 1 (the
+    coarse pass, 64-row query tiles) and B = 4 (128-row tiles)."""
+    for b in (1, 4):
+        q, k, v = _qkv(np.random.default_rng(b), b, 1037, 16, 64, cuda)
+        got = vit_attention.vit_attention(q, k, v)
+        ref = vit_attention.vit_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        assert (got.float() - ref.float()).abs().max().item() <= 1e-2
 
 
 @pytest.mark.cuda
@@ -149,6 +223,12 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q72, k72, v72 = _qkv(np.random.default_rng(0), 1, 20, 2, 72, cuda)
     with pytest.raises(ValueError):
         vit_attention.vit_attention(q72, k72, v72)
+    q144, k144, v144 = _qkv(np.random.default_rng(0), 1, 20, 2, 144, cuda)
+    with pytest.raises(ValueError):  # wider than the kernel's 128
+        vit_attention.vit_attention(q144, k144, v144)
     wide = torch.zeros(1, 20, 2, 128, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # Dh not contiguous
         vit_attention.vit_attention(q, k, wide[..., ::2])
+    odd = torch.zeros(1, 20, 2 * 64 + 4, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # a token stride TMA cannot take
+        vit_attention.vit_attention(q, k, odd[..., :128].view(1, 20, 2, 64))
