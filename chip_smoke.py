@@ -2,6 +2,8 @@
 """Smoke run of patchfusion_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-only DIR   # only step 3's timings, of the
+                                            # kernels of the checkout at DIR
 
 1. Prints the card (nvidia-smi name and power limit) and torch's version.
 2. Builds the CUDA kernels from patchfusion_tpu_torch/csrc with nvcc (one
@@ -13,9 +15,13 @@
    float32 and bfloat16, channels-last and permuted-NCHW inputs; the
    attention kernel at the vitl fine and coarse shapes (B = 4 and 1,
    N = 1037, H = 16, Dh = 64) and at the vitmicro width (Dh = 32) on
-   strided qkv views, in all three roundings. Times are per call over runs
-   of 20 back-to-back calls; each row carries its bound and bound_share
-   (bound_ms / ms).
+   strided qkv views, in all three roundings, each closer to its own
+   rounding's twin than to the other two on inputs where the roundings
+   part. Each function is timed four ways (_timings): ms, one call between
+   CUDA events (host work included); ms_batched, per call over runs of 20
+   back-to-back calls; device_ms, the profiler's kernel time per call;
+   host_us, the host's time to issue one call. Each row carries its bound
+   and bound_share (bound_ms / ms).
 4. Builds DA-vitl PatchFusion at full width from
    configs/patchfusion_depthanything/depthanything_vitl_patchfusion_u4k.py
    in bf16 with seeded random weights, answers three m1 requests and one m2
@@ -35,6 +41,11 @@
 
 Any failed check raises, so the script exits non-zero without the last line.
 It needs one CUDA card and nothing but this repository.
+
+--time-only DIR builds the kernels of the checkout at DIR (another commit
+of this repository, for a comparison within one run on one card) and
+times its wrappers and SDPA at the B = 4 shapes of step 3 as step 3 does,
+printing one JSON line; it checks nothing against the twins.
 """
 
 from __future__ import annotations
@@ -228,16 +239,32 @@ def phase_build():
     return secs
 
 
-def _time_ms(fn, calls: int = 20, reps: int = 7, warm: int = 3) -> float:
-    """Median over `reps` of the mean time of `calls` back-to-back calls,
-    CUDA events around each run of calls: the device time per call when
-    the card stays busy, so a call's host-side work (argument checks,
-    tensor maps, the launch itself) is not counted unless it is slower
-    than the kernel."""
+def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Median over `reps` single calls, CUDA events around each: the
+    call's host work (argument checks, tensor maps, the launch) counts
+    where the card would otherwise wait for it."""
     import torch
 
     for _ in range(warm):
         fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _time_batched_ms(fn, calls: int = 20, reps: int = 7) -> float:
+    """Median over `reps` of the mean time of `calls` back-to-back calls,
+    CUDA events around each run: a call's host work is hidden behind the
+    card's queue unless it is slower than the kernel."""
+    import torch
+
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -251,6 +278,51 @@ def _time_ms(fn, calls: int = 20, reps: int = 7, warm: int = 3) -> float:
     return float(np.median(times))
 
 
+def _host_us(fn, calls: int = 20, reps: int = 5) -> float:
+    """Median over `reps` of the host's time per call to issue `calls`
+    back-to-back calls (the card is idle at the start and never waited
+    for), in microseconds."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def _device_ms(fn, calls: int = 20) -> float:
+    """Kernel time per call on the card: the sum of the durations of the
+    device events torch.profiler records over `calls` calls, divided by
+    `calls`."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(us > 0, "the profiler recorded no device time")
+    return us / calls / 1e3
+
+
+def _timings(fn, prefix: str = "") -> dict:
+    """The four times of fn (see the module note), keys prefixed."""
+    out = {"ms": _time_ms(fn)}
+    out["ms_batched"] = _time_batched_ms(fn)
+    out["device_ms"] = _device_ms(fn)
+    out["host_us"] = _host_us(fn)
+    return {prefix + k: v for k, v in out.items()}
+
+
 def _nchw_view(x_nhwc_np, dtype, device):
     """A channels-last view of an NCHW tensor: the layout the model feeds."""
     import torch
@@ -260,42 +332,44 @@ def _nchw_view(x_nhwc_np, dtype, device):
     return t.permute(0, 2, 3, 1)
 
 
+HEAD_SHAPE = (392, 518, 224, 296, 64, 33, 128, 80)  # oh ow ih iw k cin cc hid
+
+
+def _head_inputs(b, dtype, layout, dev):
+    """Seeded inputs of the head kernels at the head's shapes: p, t,
+    centers, last_cat, cond_lo and the four MLP weights in `dtype`."""
+    import torch
+
+    oh, ow, ih, iw, k, cin, cc, hid = HEAD_SHAPE
+    rng = np.random.default_rng(b)
+    p = rng.random((b, oh, ow), dtype=np.float32) * 0.98 + 0.01
+    t = rng.random((b, oh, ow), dtype=np.float32)
+    cent = rng.random((b, ih, iw, k), dtype=np.float32) * 70 + 1
+    last = rng.standard_normal((b, oh, ow, cin), dtype=np.float32)
+    cond = rng.standard_normal((b, ih, iw, cc), dtype=np.float32)
+    ws = [rng.standard_normal(shape, dtype=np.float32) * 0.1
+          for shape in ((cin + cc, hid), (hid,), (hid, 4), (4,))]
+    if layout == "nhwc":
+        maps = [torch.from_numpy(a).to(dev, dtype) for a in (cent, last, cond)]
+    else:
+        maps = [_nchw_view(a, dtype, dev) for a in (cent, last, cond)]
+    return (torch.from_numpy(p).to(dev), torch.from_numpy(t).to(dev), *maps,
+            [torch.from_numpy(w).to(dev, dtype) for w in ws])
+
+
 def _head_kernels(results):
     """The three head kernels against their twins."""
     import torch
     from patchfusion_tpu_torch.ops import fused_head as fh
 
     dev = torch.device("cuda")
-    oh, ow, ih, iw, k, cin, cc, hid = 392, 518, 224, 296, 64, 33, 128, 80
     for b in (1, 4):
-        rng = np.random.default_rng(b)
-        p = rng.random((b, oh, ow), dtype=np.float32) * 0.98 + 0.01
-        t = rng.random((b, oh, ow), dtype=np.float32)
-        cent = rng.random((b, ih, iw, k), dtype=np.float32) * 70 + 1
-        last = rng.standard_normal((b, oh, ow, cin), dtype=np.float32)
-        cond = rng.standard_normal((b, ih, iw, cc), dtype=np.float32)
-        w1 = rng.standard_normal((cin + cc, hid), dtype=np.float32) * 0.1
-        b1 = rng.standard_normal((hid,), dtype=np.float32) * 0.1
-        w2 = rng.standard_normal((hid, 4), dtype=np.float32) * 0.1
-        b2 = rng.standard_normal((4,), dtype=np.float32) * 0.1
-        pt = torch.from_numpy(p).to(dev)
-        tt = torch.from_numpy(t).to(dev)
-        ws = [torch.from_numpy(w).to(dev) for w in (w1, b1, w2, b2)]
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             tol_pt, tol_depth = TOL[dname]
-            bounds = head_bounds(b, oh, ow, ih, iw, k, cin, cc, hid,
-                                 dtype.itemsize)
+            bounds = head_bounds(b, *HEAD_SHAPE, dtype.itemsize)
             for layout in ("nchw-view", "nhwc"):
-                if layout == "nhwc":
-                    ct = torch.from_numpy(cent).to(dev, dtype)
-                    lt = torch.from_numpy(last).to(dev, dtype)
-                    cdt = torch.from_numpy(cond).to(dev, dtype)
-                else:
-                    ct = _nchw_view(cent, dtype, dev)
-                    lt = _nchw_view(last, dtype, dev)
-                    cdt = _nchw_view(cond, dtype, dev)
-                wl = [w.to(dtype) for w in ws]
+                pt, tt, ct, lt, cdt, wl = _head_inputs(b, dtype, layout, dev)
                 # logbinomial_depth
                 got = fh.logbinomial_depth(pt, tt, ct)
                 ref = fh.logbinomial_depth_plain(pt, tt, ct)
@@ -341,15 +415,15 @@ def _head_kernels(results):
                 frow = {"max_abs_err": e_d, "rel_err": rel_d,
                         "rel_to_two_kernels": rel_two}
                 if layout == "nchw-view":
-                    row["ms"] = _time_ms(
-                        lambda: fh.logbinomial_depth(pt, tt, ct))
+                    row.update(_timings(
+                        lambda: fh.logbinomial_depth(pt, tt, ct)))
                     row["plain_ms"] = _time_ms(
                         lambda: fh.logbinomial_depth_plain(pt, tt, ct))
-                    crow["ms"] = _time_ms(lambda: fh.clb_pt(lt, cdt, *wl))
+                    crow.update(_timings(lambda: fh.clb_pt(lt, cdt, *wl)))
                     crow["plain_ms"] = _time_ms(
                         lambda: fh.clb_pt_plain(lt, cdt, *wl))
-                    frow["ms"] = _time_ms(
-                        lambda: fh.clb_logbinomial_depth(lt, cdt, ct, *wl))
+                    frow.update(_timings(
+                        lambda: fh.clb_logbinomial_depth(lt, cdt, ct, *wl)))
                     frow["plain_ms"] = _time_ms(
                         lambda: fh.clb_logbinomial_depth_plain(lt, cdt, ct,
                                                                *wl))
@@ -361,6 +435,8 @@ def _head_kernels(results):
                     r["bound_ms"], r["bound_by"] = bounds[name]
                     if "ms" in r:
                         r["bound_share"] = r["bound_ms"] / r["ms"]
+                        r["bound_share_device"] = (r["bound_ms"]
+                                                   / r["device_ms"])
                     r["library_ms"] = None
                     results[(name, dname, b, layout)] = r
                     say(f"kernel {name} {dname} B={b} {layout}: "
@@ -372,6 +448,66 @@ def _head_kernels(results):
 ATTN_SHAPES = [(4, 1037, 16, 64), (1, 1037, 16, 64), (2, 13, 2, 32)]
 
 
+def _attention_wrappers():
+    """label -> (wrapper, the twin's rounding (round_logits, round_diff))."""
+    from patchfusion_tpu_torch.ops import vit_attention as va
+
+    return {
+        "vit_attention": (va.vit_attention, (True, True)),
+        "vit_attention_blocked": (va.vit_attention_blocked, (False, False)),
+        "vit_attention_mxsum(bf16_exp=True)": (
+            lambda q, k, v: va.vit_attention_mxsum(q, k, v, bf16_exp=True),
+            (False, True)),
+    }
+
+
+def _qkv(b, n, h, dh, max_first=False):
+    """Seeded q, k, v as the model hands them: views qkv[:, :, i] of a
+    (B, N, 3, H, Dh) bf16 tensor on the card. max_first: every row's
+    largest logit lies at key 0, ~6 above the rest, so the kernel's running
+    max is the row max from its first key tile on and each rounding's twin
+    is the kernel's up to the order of its sums."""
+    import torch
+
+    rng = np.random.default_rng(10 + b + dh)
+    qkv = rng.standard_normal((b, n, 3, h, dh), dtype=np.float32)
+    if max_first:
+        qkv[:, :, :2] *= 0.6
+        qkv[:, :, 0, :, 0] = 1.0
+        qkv[:, :, 1, :, 0] = 0.0
+        qkv[:, 0, 1, :, 0] = round(6.0 * math.sqrt(dh))
+    qkv = torch.from_numpy(qkv).to("cuda", torch.bfloat16)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+def _rounding_apart(b, n, h, dh):
+    """Each wrapper against the three twins on max_first inputs: the mean
+    |o - twin| to its own rounding's twin must be under a quarter of that
+    to each other rounding's. The roundings part by ~1e-4 to 1e-3 in the
+    mean there, the kernel and its own twin by the order of f32 sums; a
+    wrapper that launched another rounding, or a kernel that ignored a
+    flag, sits at 0 from that rounding's twin."""
+    import torch
+    from patchfusion_tpu_torch.ops import vit_attention as va
+
+    q, k, v = _qkv(b, n, h, dh, max_first=True)
+    wrappers = _attention_wrappers()
+    twins = {label: va.vit_attention_plain(q, k, v, *rounding).float()
+             for label, (_, rounding) in wrappers.items()}
+    out = {}
+    for label, (fn, _) in wrappers.items():
+        got = fn(q, k, v).float()
+        dist = {other: (got - twin).abs().mean().item()
+                for other, twin in twins.items()}
+        nearest = min(d for other, d in dist.items() if other != label)
+        check(dist[label] <= 0.25 * nearest,
+              f"{label} B={b} N={n} Dh={dh}: mean |o - twin| {dist[label]:.3g}"
+              f" to its rounding, {nearest:.3g} to the nearest other")
+        out[label] = (dist[label], nearest)
+    torch.cuda.synchronize()
+    return out
+
+
 def _attention_kernel(results):
     """The attention kernel against its twin on strided qkv views, for all
     three roundings, with scaled_dot_product_attention timed beside it as
@@ -380,23 +516,13 @@ def _attention_kernel(results):
     import torch.nn.functional as F
     from patchfusion_tpu_torch.ops import vit_attention as va
 
-    dev = torch.device("cuda")
-    # wrapper -> the twin's rounding (round_logits, round_diff)
-    wrappers = {
-        "vit_attention": (va.vit_attention, (True, True)),
-        "vit_attention_blocked": (va.vit_attention_blocked, (False, False)),
-        "vit_attention_mxsum(bf16_exp=True)": (
-            lambda q, k, v: va.vit_attention_mxsum(q, k, v, bf16_exp=True),
-            (False, True)),
-    }
     for b, n, h, dh in ATTN_SHAPES:
-        rng = np.random.default_rng(10 + b + dh)
-        qkv = torch.from_numpy(rng.standard_normal(
-            (b, n, 3, h, dh), dtype=np.float32)).to(dev, torch.bfloat16)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        q, k, v = _qkv(b, n, h, dh)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        for label, (fn, rounding) in wrappers.items():
+        sdpa = _timings(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                        "library_")
+        apart = _rounding_apart(b, n, h, dh)
+        for label, (fn, rounding) in _attention_wrappers().items():
             def kernel(fn=fn):
                 return fn(q, k, v)
 
@@ -411,12 +537,15 @@ def _attention_kernel(results):
                   f"{err:.3g} > {ATTN_TOL}")
             row = {"max_abs_err": err,
                    "max_abs_out": ref.float().abs().max().item(),
-                   "ms": _time_ms(kernel),
+                   "mean_err_own_rounding": apart[label][0],
+                   "mean_err_nearest_other_rounding": apart[label][1],
+                   **_timings(kernel),
                    "plain_ms": _time_ms(
                        lambda: va.vit_attention_plain(q, k, v, *rounding)),
-                   "library_ms": sdpa_ms}
+                   **sdpa}
             row["bound_ms"], row["bound_by"] = attention_bound(b, n, h, dh)
             row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["bound_share_device"] = row["bound_ms"] / row["device_ms"]
             results[("vit_attention", label, b, dh)] = row
             say(f"kernel {label} B={b} N={n} H={h} Dh={dh}: "
                 + json.dumps(row))
@@ -428,6 +557,42 @@ def phase_kernels():
     _head_kernels(results)
     _attention_kernel(results)
     return results
+
+
+def phase_time_only(root: Path) -> dict:
+    """The B = 4 timings of step 3 for the kernels of the checkout at root
+    (whose package is the one imported): bf16 nchw-view head kernels, the
+    three attention wrappers at the vitl fine shape, and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from patchfusion_tpu_torch.ops import cuda_lib
+    from patchfusion_tpu_torch.ops import fused_head as fh
+    from patchfusion_tpu_torch.ops import vit_attention as va
+
+    check(Path(fh.__file__).resolve().is_relative_to(root.resolve()),
+          f"imported {fh.__file__}, not the package under {root}")
+    cuda_lib.build_kernels()
+    cuda_lib.load_kernels()
+    dev = torch.device("cuda")
+    pt, tt, ct, lt, cdt, wl = _head_inputs(4, torch.bfloat16, "nchw-view",
+                                           dev)
+    q, k, v = _qkv(*ATTN_SHAPES[0])
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fns = {
+        "clb_pt": lambda: fh.clb_pt(lt, cdt, *wl),
+        "logbinomial_depth": lambda: fh.logbinomial_depth(pt, tt, ct),
+        "clb_logbinomial_depth":
+            lambda: fh.clb_logbinomial_depth(lt, cdt, ct, *wl),
+        "vit_attention": lambda: va.vit_attention(q, k, v),
+        "vit_attention_blocked": lambda: va.vit_attention_blocked(q, k, v),
+        "vit_attention_mxsum(bf16_exp=True)":
+            lambda: va.vit_attention_mxsum(q, k, v, bf16_exp=True),
+        "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt),
+    }
+    rows = {name: _timings(fn) for name, fn in fns.items()}
+    for name, row in rows.items():
+        say(f"time-only {name}: " + json.dumps(row))
+    return rows
 
 
 def build_vitl():
@@ -641,15 +806,26 @@ def phase_tiny():
         check(rel <= TINY_TOL, f"tiny config ({impl}) differs by {rel:.3g}")
 
 
-def main() -> int:
-    if not (ROOT / "patchfusion_tpu_torch").is_dir():
+def main(argv) -> int:
+    root = ROOT
+    if argv[:1] == ["--time-only"] and len(argv) == 2:
+        root = Path(argv[1]).resolve()
+    elif argv:
+        raise SystemExit("usage: chip_smoke.py [--time-only DIR]")
+    if not (root / "patchfusion_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py needs the repository around it "
-                         "(patchfusion_tpu_torch/ not found)")
-    sys.path.insert(0, str(ROOT))
+                         f"(patchfusion_tpu_torch/ not found in {root})")
+    sys.path.insert(0, str(root))
     import torch
 
     t0 = time.perf_counter()
     phase_card()
+    if argv:
+        rows = phase_time_only(root)
+        say(f"total: {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"time_only": str(root), "kernels": rows}),
+              flush=True)
+        return 0
     phase_build()
     kres = phase_kernels()
     model = build_vitl()
@@ -678,10 +854,16 @@ def main() -> int:
                         "replaces": REPLACES[name],
                         "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "ms_batched": r["ms_batched"],
+                        "device_ms": r["device_ms"], "host_us": r["host_us"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "bound_share": r["bound_share"],
-                        "library_ms": r["library_ms"]})
+                        "bound_share_device": r["bound_share_device"],
+                        "library_ms": r["library_ms"],
+                        **{key: r[key] for key in (
+                            "library_ms_batched", "library_device_ms",
+                            "library_host_us") if key in r}})
     say(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -691,4 +873,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

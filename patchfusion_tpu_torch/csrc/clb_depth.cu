@@ -21,10 +21,13 @@
 //
 // Design: for bf16 inputs (the main path's dtype) the tensor-core body of
 // the bf16 clb_pt kernel (csrc/clb_tc.cuh: the condition projected at low
-// resolution, W1 as bf16 hi + lo), with logbinomial_depth's K-entry c0
-// table beside its buffers in shared memory and pf::logbinom_depth_pixel as
-// the epilogue, so depth_fused computes exactly clb_pt then
-// logbinomial_depth. For f32 inputs, clb_pt's first design (one thread per
+// resolution, W1 as bf16 hi + lo), so depth_fused computes exactly clb_pt
+// then logbinomial_depth. Its epilogue: logbinomial_depth's K-entry c0
+// table beside the buffers in shared memory, each tile's footprint of the
+// centers (K <= 128 channels) staged where the condition's was once the
+// projection is done with it, and one output pixel per lane running
+// pf::logbinom_depth over the staged corners. For f32 inputs, clb_pt's
+// first design (one thread per
 // pixel, grid-stride loop over a grid that fills the SMs once, the 52 KB of
 // f32 weights staged in shared memory once per block, 80 accumulators in
 // registers) with the same epilogue. All three maps are read through their
@@ -52,7 +55,7 @@ clb_depth_f32_kernel(const float* __restrict__ last,
                      float max_temp) {
   extern __shared__ float smem[];
   const pf::ClbWeights w =
-      pf::clb_stage_weights<float>(smem, w1, b1, w2, b2, Cin + Cc);
+      pf::clb_stage_weights(smem, w1, b1, w2, b2, Cin + Cc);
   float* c0 = smem + pf::clb_smem_floats(Cin + Cc);
   pf::fill_log_binom_c0(c0, K);
 
@@ -63,8 +66,8 @@ clb_depth_f32_kernel(const float* __restrict__ last,
     const int x = static_cast<int>(idx % OW);
     const int y = static_cast<int>((idx / OW) % OH);
     const int b = static_cast<int>(idx / (static_cast<long long>(OW) * OH));
-    const float2 pt = pf::clb_pixel<float>(last, cond, ls, cs, w, b, y, x,
-                                           OH, OW, IH, IW, Cin, Cc, p_eps);
+    const float2 pt = pf::clb_pixel(last, cond, ls, cs, w, b, y, x, OH, OW,
+                                    IH, IW, Cin, Cc, p_eps);
     out[idx] = pf::logbinom_depth_pixel<float>(pt.x, pt.y, centers, zs, c0,
                                                b, y, x, OH, OW, IH, IW, K,
                                                min_temp, max_temp);
@@ -111,7 +114,8 @@ cudaError_t launch_f32(const void* last, const void* cond,
 
 // C entry point. last_cat (B, OH, OW, Cin), cond_lo (B, IH, IW, Cc) and
 // centers (B, IH, IW, K) are device tensors of one dtype, float32
-// (inputs_bf16 = 0) or bfloat16 (= 1), with the given element strides;
+// (inputs_bf16 = 0) or bfloat16 (= 1, with K <= 128 and what clb_pt's bf16
+// kernel takes), with the given element strides;
 // w1 (Cin+Cc, hidden), b1 (hidden,), w2 (hidden, 4) and b2 (4,) are
 // contiguous float32; out is contiguous (B, OH, OW) float32. Returns the
 // cudaError_t of the launch.

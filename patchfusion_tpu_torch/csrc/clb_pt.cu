@@ -62,7 +62,7 @@ clb_pt_f32_kernel(const float* __restrict__ last,
                   pf::Strides4 ls, pf::Strides4 cs, float p_eps) {
   extern __shared__ float smem[];
   const pf::ClbWeights w =
-      pf::clb_stage_weights<float>(smem, w1, b1, w2, b2, Cin + Cc);
+      pf::clb_stage_weights(smem, w1, b1, w2, b2, Cin + Cc);
   const long long total = static_cast<long long>(B) * OH * OW;
   for (long long idx =
            static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -70,8 +70,8 @@ clb_pt_f32_kernel(const float* __restrict__ last,
     const int x = static_cast<int>(idx % OW);
     const int y = static_cast<int>((idx / OW) % OH);
     const int b = static_cast<int>(idx / (static_cast<long long>(OW) * OH));
-    const float2 pt = pf::clb_pixel<float>(last, cond, ls, cs, w, b, y, x, OH,
-                                           OW, IH, IW, Cin, Cc, p_eps);
+    const float2 pt = pf::clb_pixel(last, cond, ls, cs, w, b, y, x, OH, OW,
+                                    IH, IW, Cin, Cc, p_eps);
     p_out[idx] = pt.x;
     t_out[idx] = pt.y;
   }

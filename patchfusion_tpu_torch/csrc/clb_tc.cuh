@@ -1,8 +1,10 @@
 // The bf16 ConditionalLogBinomial MLP on tensor cores, with the condition
 // projected at low resolution: the body of csrc/clb_pt.cu's bf16 kernel
 // and, with kDepth, of csrc/clb_depth.cu's, which adds the log-binomial
-// depth expectation (pf::logbinom_depth_pixel) per output pixel. The design
-// note is in csrc/clb_pt.cu.
+// depth expectation (pf::logbinom_depth) per output pixel: the tile's
+// footprint of the bin centers is staged in the condition's buffer once
+// the projection is done with it, and each lane of a warp takes one of the
+// warp's 32 pixels. The design note is in csrc/clb_pt.cu.
 #pragma once
 
 #include "common.cuh"
@@ -243,6 +245,10 @@ clb_tc_kernel(const __nv_bfloat16* __restrict__ last,
 
   const bool last_vec = rows_aligned(last, ls, 2);
   const bool cond_vec = rows_aligned(cond, cs, 8);
+  // the centers share the condition's staged geometry, so they take vector
+  // loads only where it does
+  const bool cent_vec =
+      kDepth && cond_vec && rows_aligned(dz.centers, dz.zs, 8);
   const int tiles_x = (OW + kTW - 1) / kTW, tiles_y = (OH + kTH - 1) / kTH;
   const int n_tiles = B * tiles_x * tiles_y;
   // a tile's geometry, with the vector loads' row width and shift
@@ -254,38 +260,52 @@ clb_tc_kernel(const __nv_bfloat16* __restrict__ last,
     }
     return g2;
   };
-  // cond_lo footprint vectors (channel, row, 16-byte vector) i0 + u * 256
-  // of a tile into registers, all in flight at once, then into cond_s
+  // the footprint of channels 0 .. n_c - 1 of a low-resolution map (cond_lo,
+  // or with kDepth the centers) into cond_s, channel-major: in 16-byte
+  // vectors (channel, row, vector) from the 8-pixel boundary at or before
+  // ix_lo, kCU per thread in flight at once, where the map's rows allow;
+  // else one element per load, at the same places
   constexpr int kCU = 12;
-  auto load_cond = [&](const TileGeom& g2, int i0, uint4 (&v)[kCU]) {
-    const int nv = g2.w >> 3, per_c = g2.fy * nv;
-    const FastDiv by_c(per_c), by_v(nv);
+  auto stage_lo = [&](const TileGeom& g2, const __nv_bfloat16* src,
+                      const pf::Strides4& s, int n_c, bool vec) {
+    if (vec) {
+      const int nv = g2.w >> 3, per_c = g2.fy * nv;
+      const FastDiv by_c(per_c), by_v(nv);
+      for (int i0 = 0; i0 < n_c * per_c; i0 += kCU * kThreads) {
+        uint4 v[kCU];
 #pragma unroll
-    for (int u = 0; u < kCU; ++u) {
-      const int i = i0 + threadIdx.x + u * kThreads;
-      v[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (i < kCc * per_c) {
-        const int c = by_c.div(i), rv = i - c * per_c;
-        const int row = by_v.div(rv);
-        const int iy = g2.iy_lo + row;
-        const int ix = g2.ix_lo - g2.shift + 8 * (rv - row * nv);
-        if (ix < IW)
-          v[u] = *reinterpret_cast<const uint4*>(
-              cond + g2.b * cs.b + iy * cs.y + ix + c * cs.c);
+        for (int u = 0; u < kCU; ++u) {
+          const int i = i0 + threadIdx.x + u * kThreads;
+          v[u] = make_uint4(0u, 0u, 0u, 0u);
+          if (i < n_c * per_c) {
+            const int c = by_c.div(i), rv = i - c * per_c;
+            const int row = by_v.div(rv);
+            const int iy = g2.iy_lo + row;
+            const int ix = g2.ix_lo - g2.shift + 8 * (rv - row * nv);
+            if (ix < IW)
+              v[u] = *reinterpret_cast<const uint4*>(
+                  src + g2.b * s.b + iy * s.y + ix + c * s.c);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kCU; ++u) {
+          const int i = i0 + threadIdx.x + u * kThreads;
+          if (i < n_c * per_c) {
+            const int c = by_c.div(i), rv = i - c * per_c;
+            const int row = by_v.div(rv);
+            *reinterpret_cast<uint4*>(cond_s + c * cstride + row * g2.w +
+                                      8 * (rv - row * nv)) = v[u];
+          }
+        }
       }
-    }
-  };
-  auto store_cond = [&](const TileGeom& g2, int i0, const uint4 (&v)[kCU]) {
-    const int nv = g2.w >> 3, per_c = g2.fy * nv;
-    const FastDiv by_c(per_c), by_v(nv);
-#pragma unroll
-    for (int u = 0; u < kCU; ++u) {
-      const int i = i0 + threadIdx.x + u * kThreads;
-      if (i < kCc * per_c) {
-        const int c = by_c.div(i), rv = i - c * per_c;
-        const int row = by_v.div(rv);
-        *reinterpret_cast<uint4*>(cond_s + c * cstride + row * g2.w +
-                                  8 * (rv - row * nv)) = v[u];
+    } else {
+      const int per_c = g2.fy * g2.fx;
+      for (int i = threadIdx.x; i < n_c * per_c; i += kThreads) {
+        const int c = i / per_c, p = i % per_c;
+        const int row = p / g2.fx, col = p % g2.fx;
+        cond_s[c * cstride + row * g2.w + g2.shift + col] =
+            src[g2.b * s.b + (g2.iy_lo + row) * s.y + (g2.ix_lo + col) * s.x +
+                c * s.c];
       }
     }
   };
@@ -335,20 +355,7 @@ clb_tc_kernel(const __nv_bfloat16* __restrict__ last,
               last[tg.b * ls.b + y * ls.y + x * ls.x + c * ls.c];
       }
     }
-    if (cond_vec) {
-      for (int i0 = 0; i0 < kCc * F / 8; i0 += kCU * kThreads) {
-        uint4 v[kCU];
-        load_cond(tg, i0, v);
-        store_cond(tg, i0, v);
-      }
-    } else {
-      for (int i = threadIdx.x; i < kCc * F; i += kThreads) {
-        const int c = i / F, p = i % F;
-        const int iy = tg.iy_lo + p / tg.fx, ix = tg.ix_lo + p % tg.fx;
-        cond_s[c * cstride + p] =
-            cond[tg.b * cs.b + iy * cs.y + ix * cs.x + c * cs.c];
-      }
-    }
+    stage_lo(tg, cond, cs, kCc, cond_vec);
     __syncthreads();
 
     // ---- project the footprint: proj (F, 80) = cond (F, 128) . W1[Cin:]
@@ -370,11 +377,16 @@ clb_tc_kernel(const __nv_bfloat16* __restrict__ last,
               make_float2(acc[0][n][2 * r], acc[0][n][2 * r + 1]);
     }
     __syncthreads();
+    // the centers' footprint takes the condition's place (K <= 128); read
+    // after the __syncthreads before the depth epilogue
+    if constexpr (kDepth) stage_lo(tg, dz.centers, dz.zs, dz.K, cent_vec);
 
     // ---- per m-tile of 16 output pixels (one row, 16 columns): the input
     // term, the lerped condition term, GELU, W2, softplus, p and t
     // the input term of the warp's two m-tiles, warp and warp + 8
     float acc2[2][kNT][4] = {};
+    // with kDepth: (p or t) of pixels g and g + 8 of each m-tile, as pt
+    float ptm[2][2] = {};
 #pragma unroll
     for (int ks = 0; ks < kCinPad / 16; ++ks) {
       uint32_t a[2][4];
@@ -462,21 +474,8 @@ clb_tc_kernel(const __nv_bfloat16* __restrict__ last,
         pt[r] = s0 / (s0 + s1);
       }
       if constexpr (kDepth) {
-        // thread t = 0 takes pixel g, t = 2 pixel g + 8
-        const int quad = lane & ~3;
-        float pr[2], tr[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          pr[r] = __shfl_sync(0xffffffffu, pt[r], quad);
-          tr[r] = __shfl_sync(0xffffffffu, pt[r], quad + 1);
-        }
-        const int x = xm + g + 4 * t;
-        if ((t & 1) == 0 && x < OW)
-          dz.out[(static_cast<long long>(tg.b) * OH + y) * OW + x] =
-              pf::logbinom_depth_pixel<__nv_bfloat16>(
-                  t ? pr[1] : pr[0], t ? tr[1] : tr[0], dz.centers, dz.zs,
-                  c0, tg.b, y, x, OH, OW, IH, IW, dz.K, dz.min_temp,
-                  dz.max_temp);
+        ptm[mi][0] = pt[0];
+        ptm[mi][1] = pt[1];
       } else if (t < 2) {
         float* dst = t == 0 ? p_out : t_out;
 #pragma unroll
@@ -485,6 +484,40 @@ clb_tc_kernel(const __nv_bfloat16* __restrict__ last,
           if (x < OW)
             dst[(static_cast<long long>(tg.b) * OH + y) * OW + x] = pt[r];
         }
+      }
+    }
+
+    if constexpr (kDepth) {
+      // the depth of the warp's 32 pixels, one per lane: lane L takes
+      // column j = L % 16 of m-tile warp + 8 (L / 16), whose p and t lanes
+      // 4 (j % 8) and 4 (j % 8) + 1 hold in ptm[L / 16][j / 8]
+      const int mi = lane >> 4, j = lane & 15, src = 4 * (j & 7);
+      float pq[2][2], tq[2][2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          pq[m][r] = __shfl_sync(0xffffffffu, ptm[m][r], src);
+          tq[m][r] = __shfl_sync(0xffffffffu, ptm[m][r], src + 1);
+        }
+      const bool hi = j >= 8;
+      const float pp =
+          mi ? (hi ? pq[1][1] : pq[1][0]) : (hi ? pq[0][1] : pq[0][0]);
+      const float tt =
+          mi ? (hi ? tq[1][1] : tq[1][0]) : (hi ? tq[0][1] : tq[0][0]);
+      const int mt = warp + kWarps * mi;
+      const int y = tg.y0 + mt / (kTW / 16);
+      const int x = tg.x0 + 16 * (mt % (kTW / 16)) + j;
+      __syncthreads();  // the centers are staged
+      if (y < OH && x < OW) {
+        // the centers' window in cond_s starts at (iy_lo, ix_lo - shift)
+        const pf::Corners<__nv_bfloat16> cent(
+            cond_s, pf::Strides4{0, tg.w, 1, cstride},
+            pf::align_corners_tap(y, OH, IH), pf::align_corners_tap(x, OW, IW),
+            tg.iy_lo, tg.ix_lo - tg.shift);
+        dz.out[(static_cast<long long>(tg.b) * OH + y) * OW + x] =
+            pf::logbinom_depth(pp, tt, cent, c0, dz.K, dz.min_temp,
+                               dz.max_temp);
       }
     }
   }
@@ -504,7 +537,8 @@ cudaError_t launch(const __nv_bfloat16* last, const __nv_bfloat16* cond,
                    int OW, int IH, int IW, int Cin, int Cc, pf::Strides4 ls,
                    pf::Strides4 cs, float p_eps, DepthArgs dz, int device,
                    cudaStream_t stream) {
-  if (Cc != kCc || Cin < 1 || Cin > kCinPad || IH > OH || IW > OW)
+  if (Cc != kCc || Cin < 1 || Cin > kCinPad || IH > OH || IW > OW ||
+      (kDepth && (dz.K < 1 || dz.K > kCc)))
     return cudaErrorInvalidValue;
   const int fpad = footprint_pad(OH, OW, IH, IW);
   const size_t smem = smem_bytes(OH, OW, IH, IW, kDepth ? dz.K : 0);

@@ -63,17 +63,21 @@ struct Corners {
   Tap ty, tx;
   long long c;
 
+  // Taps ty, tx into a window of the map: base points at the window's
+  // pixel (y0, x0) and s steps through it (s.b unused).
+  __device__ __forceinline__ Corners(const T* base, Strides4 s, Tap ty_,
+                                     Tap tx_, int y0, int x0)
+      : ty(ty_), tx(tx_), c(s.c) {
+    r00 = base + (ty.i0 - y0) * s.y + (tx.i0 - x0) * s.x;
+    r10 = base + (ty.i1 - y0) * s.y + (tx.i0 - x0) * s.x;
+    r01 = base + (ty.i0 - y0) * s.y + (tx.i1 - x0) * s.x;
+    r11 = base + (ty.i1 - y0) * s.y + (tx.i1 - x0) * s.x;
+  }
+
   __device__ __forceinline__ Corners(const T* map, Strides4 s, int b, int y,
                                      int x, int OH, int OW, int IH, int IW)
-      : ty(align_corners_tap(y, OH, IH)),
-        tx(align_corners_tap(x, OW, IW)),
-        c(s.c) {
-    const T* base = map + b * s.b;
-    r00 = base + ty.i0 * s.y + tx.i0 * s.x;
-    r10 = base + ty.i1 * s.y + tx.i0 * s.x;
-    r01 = base + ty.i0 * s.y + tx.i1 * s.x;
-    r11 = base + ty.i1 * s.y + tx.i1 * s.x;
-  }
+      : Corners(map + b * s.b, s, align_corners_tap(y, OH, IH),
+                align_corners_tap(x, OW, IW), 0, 0) {}
 
   // Channel ch of the upsampled pixel: H lerp, then W lerp (the reference
   // interpolate's axis order).
@@ -88,8 +92,9 @@ struct Corners {
 // ---------------------------------------------------------------------------
 // ConditionalLogBinomial MLP, one output pixel (pallas_head.py clb_pt):
 //   h = last[b,y,x,:] . W1[:Cin] + up(cond)[b,y,x,:] . W1[Cin:] + b1
-//   g = tanh-GELU(h) at T,  s = softplus(g . W2 + b2)
+//   g = tanh-GELU(h),  s = softplus(g . W2 + b2)
 //   p = (s0+eps) / (s0+s1+2eps),  t = (s2+eps) / (s2+s3+2eps)
+// in f32 here; the bf16 body (csrc/clb_tc.cuh) rounds h, g and W2 to bf16.
 // ---------------------------------------------------------------------------
 
 constexpr int kClbHidden = 80;  // (33 + 128) // 2, fixed by the head's widths
@@ -123,15 +128,14 @@ __host__ __device__ constexpr int clb_smem_floats(int n_in) {
   return n_in * kClbHidden + 5 * kClbHidden + 4;
 }
 
-// The MLP weights in shared memory: W1 (Cin + Cc, H), b1 (H,), W2 (H, 4)
-// rounded through T, b2 (4,).
+// The MLP weights in shared memory: W1 (Cin + Cc, H), b1 (H,), W2 (H, 4),
+// b2 (4,).
 struct ClbWeights {
   const float *w1, *b1, *w2, *b2;
 };
 
 // Block-wide copy of the f32 weights into smem (clb_smem_floats(Cin + Cc)
 // floats); ends with __syncthreads.
-template <typename T>
 __device__ __forceinline__ ClbWeights clb_stage_weights(
     float* smem, const float* __restrict__ w1, const float* __restrict__ b1,
     const float* __restrict__ w2, const float* __restrict__ b2, int n_in) {
@@ -143,32 +147,32 @@ __device__ __forceinline__ ClbWeights clb_stage_weights(
   for (int i = threadIdx.x; i < n_w1; i += blockDim.x) w1s[i] = w1[i];
   for (int i = threadIdx.x; i < kClbHidden; i += blockDim.x) b1s[i] = b1[i];
   for (int i = threadIdx.x; i < kClbHidden * 4; i += blockDim.x)
-    w2s[i] = round_to<T>(w2[i]);
+    w2s[i] = w2[i];
   if (threadIdx.x < 4) b2s[threadIdx.x] = b2[threadIdx.x];
   __syncthreads();
   return ClbWeights{w1s, b1s, w2s, b2s};
 }
 
-// (p, t) of pixel (b, y, x). The 80 accumulators live in registers; every
-// weight read is the same smem address across the warp (a broadcast).
-template <typename T>
+// (p, t) of pixel (b, y, x) of f32 maps (the bf16 body is csrc/clb_tc.cuh).
+// The 80 accumulators live in registers; every weight read is the same
+// smem address across the warp (a broadcast).
 __device__ __forceinline__ float2 clb_pixel(
-    const T* __restrict__ last, const T* __restrict__ cond, Strides4 ls,
-    Strides4 cs, const ClbWeights& w, int b, int y, int x, int OH, int OW,
-    int IH, int IW, int Cin, int Cc, float p_eps) {
+    const float* __restrict__ last, const float* __restrict__ cond,
+    Strides4 ls, Strides4 cs, const ClbWeights& w, int b, int y, int x,
+    int OH, int OW, int IH, int IW, int Cin, int Cc, float p_eps) {
   float h[kClbHidden];
 #pragma unroll
   for (int j = 0; j < kClbHidden; ++j) h[j] = 0.f;
 
-  const T* lrow = last + b * ls.b + y * ls.y + x * ls.x;
+  const float* lrow = last + b * ls.b + y * ls.y + x * ls.x;
   for (int c = 0; c < Cin; ++c) {
-    const float v = to_f32(lrow[c * ls.c]);
+    const float v = lrow[c * ls.c];
     const float* wr = w.w1 + c * kClbHidden;
 #pragma unroll
     for (int j = 0; j < kClbHidden; ++j) h[j] = fmaf(v, wr[j], h[j]);
   }
 
-  const Corners<T> cu(cond, cs, b, y, x, OH, OW, IH, IW);
+  const Corners<float> cu(cond, cs, b, y, x, OH, OW, IH, IW);
   for (int c = 0; c < Cc; ++c) {
     const float v = cu.at(c);
     const float* wr = w.w1 + (Cin + c) * kClbHidden;
@@ -179,8 +183,7 @@ __device__ __forceinline__ float2 clb_pixel(
   float o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
 #pragma unroll
   for (int j = 0; j < kClbHidden; ++j) {
-    const float g =
-        round_to<T>(gelu_tanh<T>(round_to<T>(h[j] + w.b1[j])));
+    const float g = gelu_tanh<float>(h[j] + w.b1[j]);
     o0 = fmaf(g, w.w2[4 * j + 0], o0);
     o1 = fmaf(g, w.w2[4 * j + 1], o1);
     o2 = fmaf(g, w.w2[4 * j + 2], o2);
@@ -217,12 +220,14 @@ __device__ __forceinline__ void fill_log_binom_c0(float* c0, int K) {
 
 // Two passes over K (max, then exp-sum and the weighted sum), so nothing
 // K-sized lives in registers; the upsampled centers are never stored.
+// cent: the pixel's four corners of the centers map, in global or shared
+// memory.
 template <typename T>
-__device__ __forceinline__ float logbinom_depth_pixel(
-    float p, float t, const T* __restrict__ centers, Strides4 cs,
-    const float* c0, int b, int y, int x, int OH, int OW, int IH, int IW,
-    int K, float min_temp, float max_temp) {
-  const Corners<T> cent(centers, cs, b, y, x, OH, OW, IH, IW);
+__device__ __forceinline__ float logbinom_depth(float p, float t,
+                                                const Corners<T>& cent,
+                                                const float* c0, int K,
+                                                float min_temp,
+                                                float max_temp) {
   const float pc = fminf(fmaxf(p, 1e-4f), 1.f);
   const float q = fminf(fmaxf(1.f - pc, 1e-4f), 1.f);
   const float lp = logf(pc);
@@ -243,6 +248,18 @@ __device__ __forceinline__ float logbinom_depth_pixel(
     sc += ek * cent.at(k);
   }
   return sc / se;
+}
+
+// The same for pixel (b, y, x) of a (B, OH, OW) output, the centers read
+// from global memory through their strides.
+template <typename T>
+__device__ __forceinline__ float logbinom_depth_pixel(
+    float p, float t, const T* __restrict__ centers, Strides4 cs,
+    const float* c0, int b, int y, int x, int OH, int OW, int IH, int IW,
+    int K, float min_temp, float max_temp) {
+  return logbinom_depth(p, t,
+                        Corners<T>(centers, cs, b, y, x, OH, OW, IH, IW), c0,
+                        K, min_temp, max_temp);
 }
 
 }  // namespace pf

@@ -218,14 +218,18 @@ def _check_clb_bf16(oh: int, ow: int, ih: int, iw: int, cin: int, cc: int,
                     k: int) -> None:
     """What the bf16 clb kernels (clb_pt, and with k bins
     clb_logbinomial_depth) take beyond _check_clb: up to 48 input channels,
-    128 condition channels, and an upsample (IH <= OH, IW <= OW) steep
-    enough that an 8 x 32 output tile's low-resolution footprint fits in
-    shared memory beside the weights (upsampling by about 1.2 or more; the
-    head upsamples by ~1.75)."""
+    128 condition channels, up to 128 bins (staged in the condition's
+    buffer), and an upsample (IH <= OH, IW <= OW) steep enough that an
+    8 x 32 output tile's low-resolution footprint fits in shared memory
+    beside the weights (upsampling by about 1.2 or more; the head upsamples
+    by ~1.75)."""
     if not 0 < cin <= CLB_BF16_MAX_CIN or cc != CLB_BF16_CC:
         raise ValueError(f"the bf16 clb_pt kernel takes 1-{CLB_BF16_MAX_CIN} "
                          f"input and {CLB_BF16_CC} condition channels, got "
                          f"{cin} and {cc}")
+    if k > CLB_BF16_CC:
+        raise ValueError(f"the bf16 clb_logbinomial_depth kernel takes up to "
+                         f"{CLB_BF16_CC} bins, got {k}")
     if ih > oh or iw > ow:
         raise ValueError(f"the bf16 clb_pt kernel upsamples; got {ih}x{iw} "
                          f"-> {oh}x{ow}")

@@ -158,13 +158,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_head.clb_pt(torch.rand(1, 64, 64, 33, device=cuda, dtype=bf),
                           torch.rand(1, 64, 64, 128, device=cuda, dtype=bf),
                           *w_bf)
+    with pytest.raises(ValueError):  # more bins than the staged centers take
+        fused_head.clb_logbinomial_depth(
+            last.to(bf), cond.to(bf),
+            torch.rand(1, 4, 5, 130, device=cuda, dtype=bf), *w_bf)
 
 
-def _qkv(rng, b, n, h, dh, dev):
+def _qkv(rng, b, n, h, dh, dev, max_first=False):
     """q, k, v as the model hands them: views qkv[:, :, i] of the qkv
-    linear's (B, N, 3, H, Dh) output."""
-    qkv = torch.from_numpy(rng.standard_normal(
-        (b, n, 3, h, dh), dtype=np.float32)).to(dev, torch.bfloat16)
+    linear's (B, N, 3, H, Dh) output. max_first: every row's largest logit
+    lies at key 0, ~6 above the rest, so the kernel's running max is the
+    row max from its first key tile on."""
+    qkv = rng.standard_normal((b, n, 3, h, dh), dtype=np.float32)
+    if max_first:
+        qkv[:, :, :2] *= 0.6
+        qkv[:, :, 0, :, 0] = 1.0
+        qkv[:, :, 1, :, 0] = 0.0
+        qkv[:, 0, 1, :, 0] = round(6.0 * dh ** 0.5)
+    qkv = torch.from_numpy(qkv).to(dev, torch.bfloat16)
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
@@ -180,18 +191,20 @@ ROUNDINGS = {
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h", [3, 16])
 @pytest.mark.parametrize("b", [1, 4])
 @pytest.mark.parametrize("dh", [32, 64, 128])
 @pytest.mark.parametrize("n", [37, 130, 1037])
 @pytest.mark.parametrize("wrapper", list(ROUNDINGS))
-def test_attention_kernel_matches_twin(cuda, wrapper, n, dh, b):
+def test_attention_kernel_matches_twin(cuda, wrapper, n, dh, b, h):
     """Ragged N (not a multiple of the 128-key tiles), strided qkv views,
-    both query tiles (B = 1 and 4 at N = 1037 pick 64 and 128 rows), one
-    launch per call. The kernel rounds P to bf16 against its running max,
-    the twin against the whole-row max, and they sum in another order:
-    1e-2 absolute on outputs of |o| < ~1."""
+    both query tiles (192 rows for Dh <= 64, 128 above), one launch per
+    call; H = 16 with N = 1037 and Dh = 64 is the vitl grid, at B = 1 (the
+    coarse pass: one partial wave of items) and B = 4. The kernel rounds P
+    to bf16 against its running max, the twin against the whole-row max,
+    and they sum in another order: 1e-2 absolute on outputs of |o| < ~1."""
     fn, rounding = ROUNDINGS[wrapper]
-    q, k, v = _qkv(np.random.default_rng(n + dh), b, n, 3, dh, cuda)
+    q, k, v = _qkv(np.random.default_rng(n + dh), b, n, h, dh, cuda)
     before = vit_attention.LAUNCHES["vit_attention"]
     got = fn(q, k, v)
     ref = vit_attention.vit_attention_plain(q, k, v, *rounding)
@@ -204,15 +217,25 @@ def test_attention_kernel_matches_twin(cuda, wrapper, n, dh, b):
 
 
 @pytest.mark.cuda
-def test_attention_kernel_grid_of_16_heads(cuda):
-    """The vitl heads at both batch sizes of the main path: B = 1 (the
-    coarse pass, 64-row query tiles) and B = 4 (128-row tiles)."""
-    for b in (1, 4):
-        q, k, v = _qkv(np.random.default_rng(b), b, 1037, 16, 64, cuda)
-        got = vit_attention.vit_attention(q, k, v)
-        ref = vit_attention.vit_attention_plain(q, k, v)
-        torch.cuda.synchronize()
-        assert (got.float() - ref.float()).abs().max().item() <= 1e-2
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("n", [37, 130, 1037])
+@pytest.mark.parametrize("wrapper", list(ROUNDINGS))
+def test_attention_kernel_keeps_its_rounding(cuda, wrapper, n, dh):
+    """Each wrapper's output is nearer its own rounding's twin than any
+    other rounding's: on inputs whose row maxima lie in the first key tile
+    the kernel and its own twin differ only by the order of f32 sums, while
+    the roundings part by ~1e-4 to 1e-3 in the mean. So a wrapper that
+    sent another rounding's flags, or a kernel that ignored one, fails
+    here although it would pass the 1e-2 bound above."""
+    fn, _ = ROUNDINGS[wrapper]
+    q, k, v = _qkv(np.random.default_rng(n + dh), 2, n, 3, dh, cuda,
+                   max_first=True)
+    got = fn(q, k, v).float()
+    dist = {other: (got - vit_attention.vit_attention_plain(
+        q, k, v, *rounding).float()).abs().mean().item()
+        for other, (_, rounding) in ROUNDINGS.items()}
+    nearest = min(d for other, d in dist.items() if other != wrapper)
+    assert dist[wrapper] <= 0.25 * nearest, dist
 
 
 @pytest.mark.cuda
