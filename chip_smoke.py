@@ -12,7 +12,9 @@
    and times kernel, twin and, where one exists, the one PyTorch call that
    computes the same function, with CUDA events:
    the head kernels at B = 1 and 4, output 392x518, low-res input 224x296,
-   float32 and bfloat16, channels-last and permuted-NCHW inputs; the
+   float32 and bfloat16, channels-last and permuted-NCHW inputs
+   (logbinomial_depth within 2e-4 of max |depth| in both dtypes, on its
+   tiled kernel, the row naming the kernel that ran); the
    attention kernel at the vitl fine and coarse shapes (B = 4 and 1,
    N = 1037, H = 16, Dh = 64) and at the vitmicro width (Dh = 32) on
    strided qkv views, in all three roundings, each closer to its own
@@ -82,12 +84,20 @@ REPLACES = {
 # to max |depth|). f32 differs only by float reassociation; bf16 also by the
 # kernel's bf16 rounding of the bottleneck and GELU (the twin is f32 inside).
 TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
+# logbinomial_depth vs its twin in both dtypes, relative to max |depth|: it
+# reads the bf16 centers exactly; only the order of its sums and
+# ex2.approx part it from the twin
+DEPTH_TOL = 2e-4
+# pf_logbinomial_depth's two kernels, by their LAUNCHES names
+DEPTH_VARIANTS = {"logbinomial_depth": "tiled",
+                  "logbinomial_depth_pixel": "per-pixel"}
 # attention kernel vs twin, absolute on outputs of |o| <~ 1: the two round
 # P to bf16 against different maxima (running vs whole-row) and sum in
 # another order; a wrong key, row or column moves o by ~|o|
 ATTN_TOL = 1e-2
 # depth_fused vs the head's clb_pt + logbinomial_depth launches: the same
-# device bodies, relative to max |depth|
+# per-pixel arithmetic (the tiled depth kernel stages and sums as the fused
+# epilogue does, to float rounding), relative to max |depth|
 FUSED_TOL = 1e-4
 PATH_TOL = 3e-2   # pallas vs einsum attention path, relative to max |depth|
 TINY_TOL = 3e-2   # bf16 card vs f32 CPU, relative to max |depth|
@@ -370,18 +380,24 @@ def _head_kernels(results):
             bounds = head_bounds(b, *HEAD_SHAPE, dtype.itemsize)
             for layout in ("nchw-view", "nhwc"):
                 pt, tt, ct, lt, cdt, wl = _head_inputs(b, dtype, layout, dev)
-                # logbinomial_depth
+                # logbinomial_depth, and which of its kernels ran
+                before = counts()
                 got = fh.logbinomial_depth(pt, tt, ct)
+                ran = [DEPTH_VARIANTS[n] for n in DEPTH_VARIANTS
+                       if counts()[n] > before[n]]
                 ref = fh.logbinomial_depth_plain(pt, tt, ct)
                 torch.cuda.synchronize()
                 err = (got - ref).abs().max().item()
                 rel = err / ref.abs().max().item()
                 check(bool(torch.isfinite(got).all()),
                       "logbinomial_depth: non-finite output")
-                check(rel <= tol_depth,
+                check(rel <= DEPTH_TOL,
                       f"logbinomial_depth {dname} B={b} {layout}: rel err "
-                      f"{rel:.3g} > {tol_depth}")
-                row = {"max_abs_err": err, "rel_err": rel}
+                      f"{rel:.3g} > {DEPTH_TOL}")
+                check(ran == ["tiled"], f"logbinomial_depth {dname} B={b} "
+                      f"{layout}: ran {ran}, not the tiled kernel")
+                row = {"max_abs_err": err, "rel_err": rel,
+                       "variant": ran[0]}
                 # clb_pt
                 gp, gt = fh.clb_pt(lt, cdt, *wl)
                 rp, rt = fh.clb_pt_plain(lt, cdt, *wl)
@@ -561,8 +577,9 @@ def phase_kernels():
 
 def phase_time_only(root: Path) -> dict:
     """The B = 4 timings of step 3 for the kernels of the checkout at root
-    (whose package is the one imported): bf16 nchw-view head kernels, the
-    three attention wrappers at the vitl fine shape, and SDPA."""
+    (whose package is the one imported): bf16 nchw-view head kernels (and
+    logbinomial_depth at B = 1), the three attention wrappers at the vitl
+    fine shape, and SDPA."""
     import torch
     import torch.nn.functional as F
     from patchfusion_tpu_torch.ops import cuda_lib
@@ -578,9 +595,11 @@ def phase_time_only(root: Path) -> dict:
                                            dev)
     q, k, v = _qkv(*ATTN_SHAPES[0])
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    p1, t1, c1, *_ = _head_inputs(1, torch.bfloat16, "nchw-view", dev)
     fns = {
         "clb_pt": lambda: fh.clb_pt(lt, cdt, *wl),
         "logbinomial_depth": lambda: fh.logbinomial_depth(pt, tt, ct),
+        "logbinomial_depth(B=1)": lambda: fh.logbinomial_depth(p1, t1, c1),
         "clb_logbinomial_depth":
             lambda: fh.clb_logbinomial_depth(lt, cdt, ct, *wl),
         "vit_attention": lambda: va.vit_attention(q, k, v),
@@ -664,14 +683,15 @@ def _request(model, mode, seed, want):
 
 def _want(n_tiles, vit_blocks=(0, 0)):
     """Launches per request: the head kernels once per metric-bins head
-    (the coarse head, then the fine and PF heads of every chunk), the
+    (the coarse head, then the fine and PF heads of every chunk;
+    logbinomial_depth's tiled kernel, never its per-pixel one), the
     attention kernel once per ViT block of the coarse pass and of each
     chunk's fine pass (vit_blocks: the two branches' depths, 0 with the
     einsum attention), nothing else."""
     chunks = math.ceil(n_tiles / PROCESS_NUM)
     heads = 1 + 2 * chunks
     return {"clb_pt": heads, "logbinomial_depth": heads,
-            "clb_logbinomial_depth": 0,
+            "logbinomial_depth_pixel": 0, "clb_logbinomial_depth": 0,
             "vit_attention": vit_blocks[0] + chunks * vit_blocks[1]}
 
 
@@ -862,8 +882,9 @@ def main(argv) -> int:
                         "bound_share_device": r["bound_share_device"],
                         "library_ms": r["library_ms"],
                         **{key: r[key] for key in (
-                            "library_ms_batched", "library_device_ms",
-                            "library_host_us") if key in r}})
+                            "variant", "library_ms_batched",
+                            "library_device_ms", "library_host_us")
+                           if key in r}})
     say(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

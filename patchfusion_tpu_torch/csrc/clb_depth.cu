@@ -21,8 +21,10 @@
 //
 // Design: for bf16 inputs (the main path's dtype) the tensor-core body of
 // the bf16 clb_pt kernel (csrc/clb_tc.cuh: the condition projected at low
-// resolution, W1 as bf16 hi + lo), so depth_fused computes exactly clb_pt
-// then logbinomial_depth. Its epilogue: logbinomial_depth's K-entry c0
+// resolution, W1 as bf16 hi + lo), so depth_fused computes clb_pt then
+// logbinomial_depth's per-pixel body (the tiled logbinomial_depth kernel
+// runs the same arithmetic from its own staging; the two routes agree to
+// float rounding, ~1e-7 of max depth). Its epilogue: the K-entry c0
 // table beside the buffers in shared memory, each tile's footprint of the
 // centers (K <= 128 channels) staged where the condition's was once the
 // projection is done with it, and one output pixel per lane running

@@ -202,11 +202,28 @@ __device__ __forceinline__ float2 clb_pixel(
 //   pc = clip(p, 1e-4, 1), q = clip(1 - pc, 1e-4, 1)
 //   y[k] = (c0[k] + k log pc + (K-1-k) log q) / (t (max-min) + min)
 //   depth = sum_k softmax(y)[k] up(centers)[b,y,x,k]
+//
+// What bounds it on the H100: per (pixel, bin) one exp and a handful of
+// FMAs; at the main-path shape (4 x 392 x 518 pixels, K = 64: 52 M pairs)
+// the exps alone take ~0.013 ms on MUFU (16 a clock per SM), as long as
+// moving the bytes (p, t, out and the centers once: ~0.013 ms). The body
+// below keeps the per-pair cost near that: (K-1) log q is the same for
+// every k and cancels in the softmax, so y[k] ~ u[k] = c0[k] + k A with
+// A = log pc - log q; the softmax's shift is the max of u, which is
+// concave in k (log C(K-1, k) is), so a bisection over the c0 table
+// finds it in log2 K steps instead of a pass over K; each bin is then one
+// FMA for u, one FMA by log2(e) / tv minus the shift, one ex2.approx.ftz,
+// and three sums: the normaliser and the weighted sums of the pixel's two
+// source columns, each lerped along H first; the W lerp follows once per
+// pixel at the end (H, then W, the reference interpolate's axis order).
+// Only the order of the sums and ex2.approx part it from the twin (2e-4
+// of max |depth| on the card).
 // ---------------------------------------------------------------------------
 
 // The K-entry table log C(K-1, k) in the reference's Stirling form
 // (dist_layers.py:29-33), in double as the host computes it; block-wide,
-// ends with __syncthreads.
+// ends with __syncthreads. (The fused kernels fill it once per block; the
+// depth kernels take the wrapper's cached table.)
 __device__ __forceinline__ void fill_log_binom_c0(float* c0, int K) {
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     const double e = 1e-7;
@@ -218,36 +235,94 @@ __device__ __forceinline__ void fill_log_binom_c0(float* c0, int K) {
   __syncthreads();
 }
 
-// Two passes over K (max, then exp-sum and the weighted sum), so nothing
-// K-sized lives in registers; the upsampled centers are never stored.
-// cent: the pixel's four corners of the centers map, in global or shared
-// memory.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One pixel's softmax constants: bin k weighs ex2(u[k] scale + shift),
+// u[k] = c0[k] + k a.
+struct LogBinom {
+  float a, scale, shift;
+
+  __device__ __forceinline__ float weight(float c0k, float kf) const {
+    return ex2_approx(fmaf(fmaf(kf, a, c0k), scale, shift));
+  }
+};
+
+// c0: the K-entry table, in shared or global memory.
+__device__ __forceinline__ LogBinom logbinom_setup(float p, float t,
+                                                   const float* c0, int K,
+                                                   float min_temp,
+                                                   float max_temp) {
+  const float pc = fminf(fmaxf(p, 1e-4f), 1.f);
+  const float q = fminf(fmaxf(1.f - pc, 1e-4f), 1.f);
+  LogBinom lb;
+  lb.a = logf(pc) - logf(q);
+  lb.scale = 1.4426950408889634f / (t * (max_temp - min_temp) + min_temp);
+  // u is concave in k: its max sits where it stops rising, its min at an
+  // end; a shift within rounding of the true extreme cancels in se
+  float ref;
+  if (lb.scale > 0.f) {
+    int lo = 0, hi = K - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      const float u0 = fmaf(static_cast<float>(mid), lb.a, c0[mid]);
+      const float u1 = fmaf(static_cast<float>(mid + 1), lb.a, c0[mid + 1]);
+      if (u1 > u0)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    ref = fmaf(static_cast<float>(lo), lb.a, c0[lo]);
+  } else {
+    ref = fminf(c0[0], fmaf(static_cast<float>(K - 1), lb.a, c0[K - 1]));
+  }
+  lb.shift = -ref * lb.scale;
+  return lb;
+}
+
+// The H lerp of two rows' values: a at i0, b at i1, w the weight of i1.
+__device__ __forceinline__ float lerp(float a, float b, float w) {
+  return a * (1.f - w) + b * w;
+}
+
+// The sums of one pixel: the normaliser and the weighted sums of its two
+// H-lerped columns (v0 at x i0, v1 at x i1).
+struct DepthSums {
+  float se = 0.f, s0 = 0.f, s1 = 0.f;
+
+  __device__ __forceinline__ void add(float e, float v0, float v1) {
+    se = se + e;
+    s0 = fmaf(e, v0, s0);
+    s1 = fmaf(e, v1, s1);
+  }
+
+  // The W lerp over the normalised sums.
+  __device__ __forceinline__ float finish(float wx) const {
+    return lerp(s0, s1, wx) / se;
+  }
+};
+
+// The depth of one pixel from its four corners of the centers map, in
+// global or shared memory.
 template <typename T>
 __device__ __forceinline__ float logbinom_depth(float p, float t,
                                                 const Corners<T>& cent,
                                                 const float* c0, int K,
                                                 float min_temp,
                                                 float max_temp) {
-  const float pc = fminf(fmaxf(p, 1e-4f), 1.f);
-  const float q = fminf(fmaxf(1.f - pc, 1e-4f), 1.f);
-  const float lp = logf(pc);
-  const float lq = logf(q);
-  const float tv = t * (max_temp - min_temp) + min_temp;
-  const float km1 = static_cast<float>(K - 1);
-
-  float m = __int_as_float(0xff800000);  // -inf
+  const LogBinom lb = logbinom_setup(p, t, c0, K, min_temp, max_temp);
+  DepthSums s;
+  const float wy = cent.ty.w;
   for (int k = 0; k < K; ++k) {
-    const float kf = static_cast<float>(k);
-    m = fmaxf(m, (c0[k] + kf * lp + (km1 - kf) * lq) / tv);
+    const long long o = k * cent.c;
+    s.add(lb.weight(c0[k], static_cast<float>(k)),
+          lerp(to_f32(cent.r00[o]), to_f32(cent.r10[o]), wy),
+          lerp(to_f32(cent.r01[o]), to_f32(cent.r11[o]), wy));
   }
-  float se = 0.f, sc = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const float kf = static_cast<float>(k);
-    const float ek = expf((c0[k] + kf * lp + (km1 - kf) * lq) / tv - m);
-    se += ek;
-    sc += ek * cent.at(k);
-  }
-  return sc / se;
+  return s.finish(cent.tx.w);
 }
 
 // The same for pixel (b, y, x) of a (B, OH, OW) output, the centers read

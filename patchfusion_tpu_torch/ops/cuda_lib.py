@@ -111,7 +111,8 @@ def load_kernels() -> ctypes.CDLL:
         vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                              ctypes.c_longlong, ctypes.c_float)
         lib.pf_logbinomial_depth.argtypes = (
-            [vp] * 4 + [i32] * 7 + [i64] * 4 + [f32] * 2 + [i32, vp])
+            [vp] * 5 + [i32] * 7 + [i64] * 4 + [f32] * 2
+            + [i32, vp, ctypes.POINTER(i32)])
         lib.pf_clb_pt.argtypes = (
             [vp] * 8 + [i32] * 9 + [i64] * 8 + [f32, i32, vp])
         lib.pf_clb_logbinomial_depth.argtypes = (

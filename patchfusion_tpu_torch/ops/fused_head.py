@@ -22,6 +22,7 @@ channels-last copies.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -34,8 +35,11 @@ from patchfusion_tpu_torch.ops.resize import interpolate
 
 CLB_HIDDEN = 80  # the hidden width csrc/common.cuh is compiled for
 
-# kernel launches since the counts were last set to 0
-LAUNCHES = {"clb_pt": 0, "logbinomial_depth": 0, "clb_logbinomial_depth": 0}
+# kernel launches since the counts were last set to 0; logbinomial_depth
+# counts its tiled kernel, logbinomial_depth_pixel the per-pixel kernel
+# that takes the shapes the tiled one does not (a downsample of the centers)
+LAUNCHES = {"clb_pt": 0, "logbinomial_depth": 0,
+            "logbinomial_depth_pixel": 0, "clb_logbinomial_depth": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +69,19 @@ def _log_binom_coeffs(k: int) -> np.ndarray:
     d = np.maximum(n - kk, 0.0)
     return (n * np.log(n) - kk * np.log(kk) - d * np.log(d + e)
             ).astype(np.float32)
+
+
+_C0_TABLES = {}  # (K, device) -> the kernels' c0 table on that device
+
+
+def _c0_table(k: int, device: torch.device) -> torch.Tensor:
+    """_log_binom_coeffs(k) as a float32 tensor on `device`, made once."""
+    key = (k, device)
+    table = _C0_TABLES.get(key)
+    if table is None:
+        table = _C0_TABLES[key] = torch.from_numpy(
+            _log_binom_coeffs(k)).to(device)
+    return table
 
 
 def logbinomial_depth_plain(p: torch.Tensor, t: torch.Tensor,
@@ -113,17 +130,23 @@ def logbinomial_depth(p: torch.Tensor, t: torch.Tensor,
     cb, ih, iw, k = centers.shape
     if cb != b:
         raise ValueError(f"batch mismatch: p {b}, centers {cb}")
-    if not 0 < k <= 12288:  # the c0 table lives in 48 KB of shared memory
+    if not 0 < k <= 12288:
         raise ValueError(f"unsupported bin count {k}")
     out = torch.empty((b, oh, ow), dtype=torch.float32, device=p.device)
+    variant = ctypes.c_int(0)
     err = load_kernels().pf_logbinomial_depth(
-        p.data_ptr(), t.data_ptr(), centers.data_ptr(), out.data_ptr(),
+        p.data_ptr(), t.data_ptr(), centers.data_ptr(),
+        _c0_table(k, p.device).data_ptr(), out.data_ptr(),
         int(centers.dtype == torch.bfloat16), b, oh, ow, ih, iw, k,
         *centers.stride(), float(min_temp), float(max_temp),
-        p.device.index, stream(p.device))
+        p.device.index, stream(p.device), ctypes.byref(variant))
     raise_on(err, "logbinomial_depth")
-    LAUNCHES["logbinomial_depth"] += 1
+    LAUNCHES[_DEPTH_VARIANTS[variant.value]] += 1
     return out
+
+
+# pf_logbinomial_depth's *variant -> its count in LAUNCHES
+_DEPTH_VARIANTS = {1: "logbinomial_depth", 2: "logbinomial_depth_pixel"}
 
 
 # ---------------------------------------------------------------------------

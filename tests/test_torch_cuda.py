@@ -116,6 +116,73 @@ def test_clb_pt_matches_twin(cuda, dtype, layout, b, oh, ow, ih, iw):
     assert (got_t - ref_t).abs().max().item() <= tol
 
 
+def _depth_inputs(b, oh, ow, ih, iw, k, dtype, dev, layout, seed):
+    rng = np.random.default_rng(seed)
+    p = torch.from_numpy(rng.random((b, oh, ow), dtype=np.float32) * 0.98
+                         + 0.01).to(dev)
+    t = torch.from_numpy(rng.random((b, oh, ow), dtype=np.float32)).to(dev)
+    centers = _nhwc(rng.random((b, ih, iw, k), dtype=np.float32) * 70 + 1,
+                    dtype, dev, layout)
+    return p, t, centers
+
+
+# (B, OH, OW, IH, IW, K)
+DEPTH_SHAPES = {
+    "head_b1": (1, 392, 518, 224, 296, 64),
+    "small": (2, 42, 56, 24, 30, 64),
+    "k100": (2, 42, 56, 24, 30, 100),
+    "k300": (2, 42, 56, 24, 30, 300),
+    "same_size_k63": (1, 42, 56, 42, 56, 63),
+    "downsample": (1, 42, 56, 90, 120, 64),
+    "steep_downsample": (1, 42, 56, 420, 560, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nhwc", "nchw-view"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(DEPTH_SHAPES))
+def test_logbinomial_depth_matches_twin(cuda, shape, dtype, layout):
+    """Within 2e-4 of max |depth| of the twin in both dtypes: the kernel
+    reads the bf16 centers exactly, and only the order of its sums and
+    ex2.approx part it from the twin. The shapes: the head's at B = 1
+    (392 x 518, ragged for the 8 x 64 tile), a small ragged one, a chunk
+    of bins, a ragged chunk and several chunks (K 64, 100, 300), no
+    upsample with an odd K, a downsample, and a downsample too steep for
+    the tiled kernel's window (the per-pixel kernel)."""
+    dims = DEPTH_SHAPES[shape]
+    p, t, centers = _depth_inputs(*dims, dtype, cuda, layout, seed=dims[5])
+    before = dict(fused_head.LAUNCHES)
+    got = fused_head.logbinomial_depth(p, t, centers)
+    ref = fused_head.logbinomial_depth_plain(p, t, centers)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max().item() <= 2e-4 * ref.abs().max().item()
+    ran = sum(fused_head.LAUNCHES[n] - before[n]
+              for n in ("logbinomial_depth", "logbinomial_depth_pixel"))
+    assert ran == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("shape", ["head", "steep_downsample"])
+def test_logbinomial_depth_picks_its_kernel(cuda, shape, b):
+    """The head's shape (bf16, NCHW view, B = 1 and 4) takes the tiled
+    kernel; a 10x downsample of the centers the per-pixel one."""
+    dims = (b, *DEPTH_SHAPES["head_b1" if shape == "head"
+                             else "steep_downsample"][1:])
+    want = "logbinomial_depth" if shape == "head" \
+        else "logbinomial_depth_pixel"
+    p, t, centers = _depth_inputs(*dims, torch.bfloat16, cuda, "nchw-view",
+                                  seed=b)
+    before = dict(fused_head.LAUNCHES)
+    fused_head.logbinomial_depth(p, t, centers)
+    torch.cuda.synchronize()
+    assert {n: fused_head.LAUNCHES[n] - before[n] for n in before} == \
+        {n: int(n == want) for n in before}
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     p = torch.rand(1, 8, 10, device=cuda)

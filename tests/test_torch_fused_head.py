@@ -182,3 +182,14 @@ def test_wrappers_reject_mixed_devices():
     p, t, centers = _t(*_depth_inputs(SHAPES["main"]))
     with pytest.raises(ValueError, match="several devices"):
         fused_head.logbinomial_depth(p, t, centers.to("meta"))
+
+
+@pytest.mark.parametrize("k", [64, 100, 300])
+def test_c0_table_matches_jax_and_is_made_once(k):
+    """The depth kernels' c0 table (the wrapper's, cached per bin count and
+    device) is the JAX package's log-binomial coefficients, bit for bit."""
+    table = fused_head._c0_table(k, torch.device("cpu"))
+    assert table.dtype == torch.float32 and table.shape == (k,)
+    np.testing.assert_array_equal(table.numpy(),
+                                  pallas_head._log_binom_coeffs(k))
+    assert fused_head._c0_table(k, torch.device("cpu")) is table
