@@ -36,9 +36,24 @@
 6. ConditionalLogBinomial.depth_fused (one clb_logbinomial_depth launch)
    on the PF head of that model, on the head's own inputs of one m1 chunk,
    against the head's two-kernel output and against the plain twin.
-7. Runs the tiny config in bf16 on the card (with the kernels, einsum and
+7. The eval path (phase `eval`), on the same model: (a) its weights, in
+   f32, written as a snapshot directory (config.json + pytorch_model.bin)
+   and loaded with PatchFusion.from_pretrained in bf16 give the seeded
+   model's m1 depth (bitwise, or within 1e-6 of max); (b) the tiny config's
+   coarse, fine and fusion .pth files load on the card (bf16) and on the
+   CPU (f32) and agree within 3e-2 of max; (c) the eval CLI
+   (patchfusion_tpu_torch.tools.test, in-process) with that snapshot runs
+   m1 over a 2-scene synthetic U4K val split at 2160x3840 written with
+   numpy, and returns finite metrics, with the head kernels launched 9
+   times per image; it prints each image's load / inference / metrics
+   seconds and whether the native host IO or its numpy fallback ran;
+   (d) BaselinePretrain from the vitl coarse and fine pretrain configs,
+   seeded, bf16: one image through each target, finite positive depth,
+   head kernels once for coarse and once per chunk of 4 tiles for fine m1.
+   Prints the snapshot's write and load times and the phase's peak memory.
+8. Runs the tiny config in bf16 on the card (with the kernels, einsum and
    pallas attention) against the same weights in float32 on the CPU.
-8. Prints one JSON line with the kernels' launches, errors, times and
+9. Prints one JSON line with the kernels' launches, errors, times and
    bounds, then {"ok": true, "device": {...}} as the last line.
 
 Any failed check raises, so the script exits non-zero without the last line.
@@ -66,6 +81,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 VITL_CONFIG = ("configs/patchfusion_depthanything/"
                "depthanything_vitl_patchfusion_u4k.py")
+BASELINE_CONFIG = ("configs/patchfusion_depthanything/"
+                   "depthanything_vitl_{}_pretrain_u4k.py")
 RAW_SHAPE = (2160, 3840)
 PROCESS_NUM = 4
 KERNEL_SOURCES = {
@@ -101,6 +118,7 @@ ATTN_TOL = 1e-2
 FUSED_TOL = 1e-4
 PATH_TOL = 3e-2   # pallas vs einsum attention path, relative to max |depth|
 TINY_TOL = 3e-2   # bf16 card vs f32 CPU, relative to max |depth|
+SNAPSHOT_TOL = 1e-6  # from_pretrained vs the seeded model, rel. to max
 # NVIDIA H100 SXM data-sheet peaks (dense): the least time a kernel's work
 # could take is the largest of its bytes, tensor-core FLOPs and other f32
 # operations over these rates
@@ -132,6 +150,47 @@ def tiny_config():
             num_patches=[h * w for (h, w) in sizes[::-1]], n_channels=5,
             g2l=True),
         sigloss=dict(type="SILogLoss"))
+
+
+def write_u4k_split(root, n_scenes: int = 2, shape=RAW_SHAPE,
+                    seed: int = 0) -> str:
+    """A synthetic UnrealStereo4K val split in the on-disk layout
+    patchfusion_tpu_torch/data/u4k.py reads, written with numpy alone: per
+    scene `Image0/00000.raw` (uint8 BGR), `Disp0/00000.npy` (float32
+    disparity of a smooth positive depth field, 4-64, with one nearer
+    rectangle whose edges are disparity boundaries), `Extrinsics0/1`
+    (focal 100, baseline 0.5: depth = 50 / disparity), and `val.txt`.
+    Returns the split file's path."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    focal, base = 100.0, 0.5
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    lines = []
+    for i in range(n_scenes):
+        a, b, c = rng.uniform(0.5, 2.0, 3).astype(np.float32)
+        depth = (4.0 + 20.0 * (1.0 + np.sin(3.0 * a * y + c))
+                 + 10.0 * (1.0 + np.cos(4.0 * b * x))).astype(np.float32)
+        depth[h // 4:h // 2, w // 4:w // 2] = rng.uniform(2.0, 3.0)
+        shade = 1.0 / (1.0 + 0.05 * depth)
+        bgr = np.stack([shade * (0.3 + 0.7 * x), shade * (0.5 + 0.5 * y),
+                        shade], axis=-1)
+        scene = Path(root) / f"scene_{i:02d}"
+        for sub in ("Image0", "Disp0", "Extrinsics0", "Extrinsics1"):
+            (scene / sub).mkdir(parents=True, exist_ok=True)
+        (bgr * 255.0).astype(np.uint8).tofile(scene / "Image0" / "00000.raw")
+        np.save(scene / "Disp0" / "00000.npy",
+                (np.float32(focal * base) / depth).astype(np.float32))
+        (scene / "Extrinsics0" / "00000.txt").write_text(
+            f"{focal} 0 0\n0 0 0 0.0\n")
+        (scene / "Extrinsics1" / "00000.txt").write_text(
+            f"{focal} 0 0\n0 0 0 {base}\n")
+        rel = f"scene_{i:02d}"
+        lines.append(f"{rel}/Image0/00000.png {rel}/Image1/00000.png "
+                     f"{rel}/Disp0/00000.npy {rel}/Disp1/00000.npy\n")
+    split = Path(root) / "val.txt"
+    split.write_text("".join(lines))
+    return str(split)
 
 
 def say(*args) -> None:
@@ -795,6 +854,195 @@ def phase_depth_fused(model):
     return launches
 
 
+def _write_triple(net, root: Path):
+    """The reference's three files of a PatchFusionNet: the two branch
+    state dicts without their prefix and the fusion-only rest."""
+    import torch
+
+    sd = net.state_dict()
+    paths = []
+    for name in ("coarse_branch", "fine_branch", None):
+        if name is None:
+            part = {k: v for k, v in sd.items() if not k.startswith(
+                ("coarse_branch.", "fine_branch."))}
+        else:
+            part = {k[len(name) + 1:]: v for k, v in sd.items()
+                    if k.startswith(name + ".")}
+        path = root / f"{name or 'fusion'}.pth"
+        torch.save(part, path)
+        paths.append(str(path))
+    return tuple(paths)
+
+
+def _eval_snapshot(model, snap: Path):
+    """(a): the model's weights, in f32, as a snapshot directory, loaded back
+    with from_pretrained; the m1 depth against the seeded model's."""
+    import torch
+    from patchfusion_tpu_torch.api import PatchFusion
+
+    snap.mkdir()
+    t = time.perf_counter()
+    # bf16 -> f32 is exact, so the load's bf16 cast gives the same weights;
+    # integer buffers (Swin's relative_position_index) keep their type
+    torch.save({k: (v.float() if v.is_floating_point() else v).cpu()
+                for k, v in model.net.state_dict().items()},
+               snap / "pytorch_model.bin")
+    (snap / "config.json").write_text(json.dumps({"config": model.config}))
+    write_s = time.perf_counter() - t
+    size = (snap / "pytorch_model.bin").stat().st_size
+    t = time.perf_counter()
+    loaded = PatchFusion.from_pretrained(str(snap), device="cuda",
+                                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    ref_sd = model.net.state_dict()
+    same = all(torch.equal(v, ref_sd[k])
+               for k, v in loaded.net.state_dict().items())
+    check(same, "from_pretrained weights differ from the seeded model's")
+    want = _want(_tiles(model.tile_cfg)["m1"])
+    with attn_impl("einsum"):
+        reset_counts()
+        _, ref = _request(model, "m1", 0, want)
+        reset_counts()
+        _, got = _request(loaded, "m1", 0, want)
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    say(f"eval: snapshot {size / 2**30:.2f} GiB written in {write_s:.1f} s, "
+        f"loaded by from_pretrained (bf16, card) in {load_s:.1f} s; m1 "
+        f"depth {'bitwise equal to' if rel == 0 else f'{rel:.3g} from'} "
+        f"the seeded model's (tolerance {SNAPSHOT_TOL}: the same kernels "
+        "on the same weights; cuDNN may pick another algorithm)")
+    check(rel <= SNAPSHOT_TOL, f"snapshot model differs by {rel:.3g}")
+    del loaded
+    torch.cuda.empty_cache()
+    return {"write_s": write_s, "load_s": load_s, "gib": size / 2**30,
+            "rel": rel}
+
+
+def _eval_triple(root: Path):
+    """(b): the tiny config's .pth triple on the card (bf16) and the CPU."""
+    import torch
+    from patchfusion_tpu_torch.api import PatchFusion
+
+    cfg = tiny_config()
+    root.mkdir()
+    ckpts = _write_triple(PatchFusion.from_config(
+        cfg, device="cpu", seed=5).net, root)
+    cpu = PatchFusion.from_config(cfg, device="cpu", seed=6, ckpts=ckpts)
+    gpu = PatchFusion.from_config(cfg, device="cuda", dtype=torch.bfloat16,
+                                  seed=7, ckpts=ckpts)
+    rng = np.random.default_rng(8)
+    hr = rng.random((84, 112, 3), dtype=np.float32)
+    lr = rng.random((1, 42, 56, 3), dtype=np.float32)
+    ref = cpu.infer(lr, hr, cai_mode="m1", process_num=2)
+    got = gpu.infer(lr, hr, cai_mode="m1", process_num=2)
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    say(f"eval: tiny .pth triple, card bf16 vs cpu f32 m1: {rel:.3g} of max "
+        f"(tolerance {TINY_TOL})")
+    check(rel <= TINY_TOL, f"tiny triple differs by {rel:.3g}")
+
+
+def _eval_cli(tile_cfg, snap: Path, data: Path):
+    """(c): the eval CLI over a synthetic 2-scene U4K val split."""
+    from patchfusion_tpu_torch.data import native
+    from patchfusion_tpu_torch.tools import test as test_cli
+
+    t = time.perf_counter()
+    split = write_u4k_split(data, 2, RAW_SHAPE, seed=0)
+    say(f"eval: synthetic U4K split, 2 scenes at {RAW_SHAPE[0]}x"
+        f"{RAW_SHAPE[1]}, written in {time.perf_counter() - t:.1f} s")
+    n_heads = _want(_tiles(tile_cfg)["m1"])["clb_pt"]
+    argv = [str(ROOT / VITL_CONFIG), "--ckp-path", str(snap),
+            "--cai-mode", "m1", "--image-raw-shape", *map(str, RAW_SHAPE),
+            "--work-dir", str(data / "work"), "--cfg-options",
+            f"val_dataloader.dataset.data_root={data}",
+            f"val_dataloader.dataset.split={split}"]
+    with attn_impl("einsum"):
+        reset_counts()
+        t = time.perf_counter()
+        tester = test_cli.evaluate(argv)
+        cli_s = time.perf_counter() - t
+        launches = counts()
+    metrics = tester.metrics
+    n_images = len(tester.image_seconds)
+    check(n_images == 2, f"the CLI tested {n_images} images, not 2")
+    check(bool(metrics) and all(math.isfinite(v) for v in metrics.values()),
+          f"eval metrics not finite: {metrics}")
+    for name in ("clb_pt", "logbinomial_depth"):
+        check(launches[name] == n_heads * n_images,
+              f"eval CLI: {name} launched {launches[name]} times, expected "
+              f"{n_heads} per image")
+    for i, sec in enumerate(tester.image_seconds):
+        say(f"eval CLI image {i}: load {sec['load']:.3f} s, inference "
+            f"{sec['inference']:.3f} s, metrics {sec['metrics']:.3f} s")
+    say(f"eval CLI: {cli_s:.1f} s in all (model load included), host IO "
+        f"{native.backend()}, head launches {launches['clb_pt']} + "
+        f"{launches['logbinomial_depth']}, metrics "
+        + json.dumps({k: round(v, 4) for k, v in metrics.items()}))
+    return {"image_seconds": tester.image_seconds, "cli_s": cli_s,
+            "host_io": native.backend(), "launches": launches}
+
+
+def _eval_baseline(model):
+    """(d): BaselinePretrain coarse and fine from the vitl pretrain
+    configs, seeded, bf16, one image each."""
+    import torch
+    from patchfusion_tpu_torch.api import BaselinePretrain
+    from patchfusion_tpu_torch.config import Config
+
+    lr, hr = _images(model, 0)
+    for target in ("coarse", "fine"):
+        cfg = Config.fromfile(str(ROOT / BASELINE_CONFIG.format(target)))
+        mcfg = cfg.model
+        pps = tuple(cfg.train_dataloader.dataset.transform_cfg
+                    .network_process_size)
+        bp = BaselinePretrain(
+            mcfg[f"{target}_branch"].to_dict(), mcfg.min_depth,
+            mcfg.max_depth, target=mcfg.target,
+            image_raw_shape=model.tile_cfg.image_raw_shape,
+            patch_split_num=model.tile_cfg.patch_split_num,
+            patch_process_shape=pps,
+            dtype=torch.bfloat16, seed=0)
+        want = 1 if target == "coarse" else math.ceil(
+            _tiles(bp.tile_cfg)["m1"] / PROCESS_NUM)
+        reset_counts()
+        t = time.perf_counter()
+        depth = bp.infer(image_lr=lr, image_hr=hr, cai_mode="m1",
+                         process_num=PROCESS_NUM)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = counts()
+        check(bool(np.isfinite(depth).all()) and bool((depth > 0).all()),
+              f"BaselinePretrain {target}: depth not finite and positive")
+        for name in ("clb_pt", "logbinomial_depth"):
+            check(launches[name] == want,
+                  f"BaselinePretrain {target}: {name} launched "
+                  f"{launches[name]} times, expected {want}")
+        say(f"eval: BaselinePretrain {target} m1: {ms:.1f} ms (first call), "
+            f"depth {depth.shape} in [{depth.min():.4g}, {depth.max():.4g}],"
+            f" head kernels {want} + {want}")
+        del bp
+        torch.cuda.empty_cache()
+
+
+def phase_eval(model):
+    """Step 7: the checkpoint and eval path at DA-vitl 2160x3840 bf16."""
+    import tempfile
+
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="pf_eval_") as tmp:
+        root = Path(tmp)
+        snap = _eval_snapshot(model, root / "snapshot")
+        _eval_triple(root / "triple")
+        cli = _eval_cli(model.tile_cfg, root / "snapshot", root / "u4k")
+    _eval_baseline(model)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {**snap, **cli, "peak_gib": peak}
+    say("eval summary: " + json.dumps(out))
+    return out
+
+
 def phase_tiny():
     """bf16 on the card (kernels; einsum and pallas attention) vs float32
     on the CPU (plain twins)."""
@@ -852,6 +1100,7 @@ def main(argv) -> int:
     main_launches, einsum_depths = phase_full_width(model)
     pallas_launches = phase_pallas_path(model, einsum_depths)
     fused_launches = phase_depth_fused(model)
+    ev = phase_eval(model)
     del model
     torch.cuda.empty_cache()
     phase_tiny()
@@ -873,6 +1122,9 @@ def main(argv) -> int:
                         "source": KERNEL_SOURCES[name],
                         "replaces": REPLACES[name],
                         "launches": launches[name],
+                        **({"launches_eval": ev["launches"][name]}
+                           if name in ("clb_pt", "logbinomial_depth")
+                           else {}),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "ms_batched": r["ms_batched"],
                         "device_ms": r["device_ms"], "host_us": r["host_us"],

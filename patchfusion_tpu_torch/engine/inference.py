@@ -9,6 +9,9 @@ pass and the fusion network. Tiles are stitched with Gaussian blend masks
 into a running weighted average: m1 is one pass of P*Q tiles, m2 adds three
 half-tile-shifted passes, rN adds N random tiles blended at raw resolution.
 
+With fusion=False (the BaselinePretrain fine target) the tiles run through
+the fine branch alone and the coarse pass and G2L are skipped.
+
 Images come in the JAX package's layout (NHWC, float in [0, 1]); tensors
 inside are NCHW on the model's device.
 """
@@ -66,15 +69,18 @@ class PatchFusionInference:
 
     def __init__(self, net: PatchFusionNet, tile_cfg: TileConfig,
                  process_num: Optional[int] = 4,
-                 rn_times_process_num: bool = False):
+                 rn_times_process_num: bool = False, fusion: bool = True):
+        """fusion=False: fine-branch depth per tile, no coarse pass; `net`
+        then needs only `fine_forward`, `dtype` and `device`."""
         self.net = net
         self.tile_cfg = tile_cfg
         self.process_num = process_num
         self.rn_times_process_num = rn_times_process_num
+        self.fusion = fusion
 
     @property
     def device(self) -> torch.device:
-        return self.net.fusion_conv_list[0].weight.device
+        return self.net.device
 
     # -- internals -----------------------------------------------------------
 
@@ -93,11 +99,16 @@ class PatchFusionInference:
         tc = self.tile_cfg
         crops = crop_resize_tiles(image_hr, origins, tc.patch_raw_shape,
                                   tc.patch_process_shape, self.net.dtype)
-        boxes = self._boxes_process(origins)
-        coarse_depth, coarse_feats, g2l_feats = coarse_ctx
         n = crops.shape[0]
         chunk = self.process_num or n
         outs = []
+        if not self.fusion:
+            for s in range(0, n, chunk):
+                depth, _ = self.net.fine_forward(crops[s:s + chunk])
+                outs.append(depth[:, 0].float())
+            return torch.cat(outs)
+        boxes = self._boxes_process(origins)
+        coarse_depth, coarse_feats, g2l_feats = coarse_ctx
         for s in range(0, n, chunk):
             droi, frois, grois = self.net.coarse_postprocess(
                 coarse_depth, coarse_feats, g2l_feats, boxes[s:s + chunk])
@@ -107,6 +118,9 @@ class PatchFusionInference:
         return torch.cat(outs)
 
     def _coarse_ctx(self, image_lr: torch.Tensor):
+        if not self.fusion:
+            # a fine-only engine never reads the coarse pass
+            return None
         coarse_depth, coarse_feats = self.net.coarse_forward(image_lr)
         return coarse_depth, coarse_feats, \
             self.net.attend_coarse(coarse_feats)
@@ -228,11 +242,16 @@ class PatchFusionInference:
         tile stream. rand_origins (rN): (B, N, 2)."""
         b = len(images_hr)
         mode, rand = self._random_tiles(cai_mode, rng, rand_origins, b)
-        depth, feats, g2l = self._coarse_ctx(self._to_device(images_lr))
+        ctx = self._coarse_ctx(self._to_device(images_lr))
         hr = self._to_device(images_hr)
+
+        def image_ctx(i):
+            if ctx is None:
+                return None
+            depth, feats, g2l = ctx
+            return (depth[i:i + 1], [f[i:i + 1] for f in feats],
+                    [f[i:i + 1] for f in g2l])
+
         return torch.stack([
-            self._image_stream(
-                hr[i], rand[i],
-                (depth[i:i + 1], [f[i:i + 1] for f in feats],
-                 [f[i:i + 1] for f in g2l]), mode)
+            self._image_stream(hr[i], rand[i], image_ctx(i), mode)
             for i in range(b)])

@@ -12,6 +12,7 @@ import torch
 from patchfusion_tpu_torch.config.registry import MODELS
 from patchfusion_tpu_torch.models.patchfusion import (PatchFusionNet,
                                                       TileConfig)
+from patchfusion_tpu_torch.models.zoedepth import ZoeDepthDA, make_zoe_branch
 
 ZOE_KEYS = ("n_bins", "bin_centers_type", "bin_embedding_dim",
             "n_attractors", "attractor_alpha", "attractor_gamma",
@@ -46,6 +47,16 @@ def guided_fusion_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
     return kw
 
 
+def check_device(device) -> torch.device:
+    """`device` as a torch.device; raises if it is a CUDA device and there
+    is none (no entry point falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} was asked for but CUDA is not "
+                           "available; pass device='cpu' to run on the CPU")
+    return device
+
+
 @MODELS.register_module(name="PatchFusion")
 def build_patchfusion(config: Dict[str, Any], dtype=torch.float32,
                       device="cuda") -> Tuple[PatchFusionNet, TileConfig]:
@@ -54,10 +65,7 @@ def build_patchfusion(config: Dict[str, Any], dtype=torch.float32,
     cast to `dtype`, in eval mode. The default is the card; a caller who
     wants the CPU passes device="cpu". Raises if a CUDA device is asked for
     and there is none."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} was asked for but CUDA is not "
-                           "available; pass device='cpu' to run on the CPU")
+    device = check_device(device)
     tile_cfg = TileConfig(tuple(config["image_raw_shape"]),
                           tuple(config["patch_split_num"]),
                           tuple(config["patch_process_shape"]))
@@ -69,3 +77,16 @@ def build_patchfusion(config: Dict[str, Any], dtype=torch.float32,
             min_depth=config["min_depth"], max_depth=config["max_depth"],
             patch_process_shape=tuple(config["patch_process_shape"]))
     return net.to(device=device, dtype=dtype).eval(), tile_cfg
+
+
+def build_zoedepth_branch(branch_cfg: Dict[str, Any], min_depth: float,
+                          max_depth: float, dtype=torch.float32,
+                          device="cuda") -> ZoeDepthDA:
+    """A standalone coarse or fine branch (the BaselinePretrain stages),
+    built on `device` (the card unless the caller asks for the CPU) and
+    cast to `dtype`, in eval mode."""
+    device = check_device(device)
+    with torch.device(device):
+        net = make_zoe_branch(zoe_branch_kwargs(branch_cfg), min_depth,
+                              max_depth)
+    return net.to(device=device, dtype=dtype).eval()

@@ -110,6 +110,10 @@ class PatchFusionNet(MetricBinsHead):
     def dtype(self) -> torch.dtype:
         return self.fusion_conv_list[0].weight.dtype
 
+    @property
+    def device(self) -> torch.device:
+        return self.fusion_conv_list[0].weight.device
+
     # -- branch passes ------------------------------------------------------
 
     def coarse_forward(self, image_lr: torch.Tensor

@@ -322,3 +322,83 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     odd = torch.zeros(1, 20, 2 * 64 + 4, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # a token stride TMA cannot take
         vit_attention.vit_attention(q, k, odd[..., :128].view(1, 20, 2, 64))
+
+
+# -- the eval path: snapshot load and the fusion-less engine ----------------
+
+def _head_launches():
+    return (fused_head.LAUNCHES["clb_pt"],
+            fused_head.LAUNCHES["logbinomial_depth"]
+            + fused_head.LAUNCHES["logbinomial_depth_pixel"])
+
+
+def _tiny_images():
+    rng = np.random.default_rng(7)
+    return (rng.random((1, 42, 56, 3), dtype=np.float32),
+            rng.random((84, 112, 3), dtype=np.float32))
+
+
+@pytest.mark.cuda
+def test_snapshot_loads_on_the_card_as_on_the_cpu(cuda, tmp_path):
+    """A tiny snapshot directory loaded on the card in bf16 holds the CPU
+    load's weights, rounded, and its m1 depth is within the tiny check's
+    3e-2 of max of the f32 CPU depth, with the head kernels launched once
+    per metric-bins head (coarse, then fine and PF per chunk of 2)."""
+    import json
+
+    import chip_smoke
+    from patchfusion_tpu_torch.api import PatchFusion
+
+    cfg = chip_smoke.tiny_config()
+    seeded = PatchFusion.from_config(cfg, device="cpu", seed=2)
+    snap = tmp_path / "snap"
+    snap.mkdir()
+    torch.save(seeded.net.state_dict(), snap / "pytorch_model.bin")
+    (snap / "config.json").write_text(json.dumps({"config": cfg}))
+    cpu = PatchFusion.from_pretrained(str(snap), device="cpu")
+    gpu = PatchFusion.from_pretrained(str(snap), device="cuda",
+                                      dtype=torch.bfloat16)
+    want_sd = cpu.net.state_dict()
+    for k, v in gpu.net.state_dict().items():
+        assert v.is_cuda
+        want = want_sd[k].to(v.dtype).to(cuda)
+        torch.testing.assert_close(v, want, rtol=0, atol=0)
+    lr, hr = _tiny_images()
+    ref = cpu.infer(lr, hr, cai_mode="m1", process_num=2)
+    before = _head_launches()
+    got = gpu.infer(lr, hr, cai_mode="m1", process_num=2)
+    ran = tuple(a - b for a, b in zip(_head_launches(), before))
+    assert ran == (5, 5)
+    rel = np.abs(got - ref).max() / np.abs(ref).max()
+    assert rel <= 3e-2, rel
+
+
+@pytest.mark.cuda
+def test_fusionless_engine_runs_the_head_kernels(cuda):
+    """BaselinePretrain's fine target on the card in bf16: one fine head per
+    chunk of 2 tiles, no coarse pass (m1: 4 tiles, 2 launches of each head
+    kernel; r1: the 9 tiles of the four regular passes in 5 chunks, then
+    one group of 2 random tiles); depth within 3e-2 of max of the same
+    weights in f32 on the CPU."""
+    import chip_smoke
+    from patchfusion_tpu_torch.api import BaselinePretrain
+
+    branch = chip_smoke.tiny_config()["fine_branch"]
+    kw = dict(target="fine", image_raw_shape=(84, 112),
+              patch_split_num=(2, 2), patch_process_shape=(42, 56))
+    cpu = BaselinePretrain(branch, 1e-3, 80, device="cpu", seed=3, **kw)
+    gpu = BaselinePretrain(branch, 1e-3, 80, device="cuda",
+                           dtype=torch.bfloat16,
+                           state_dict=cpu.net.state_dict(), **kw)
+    lr, hr = _tiny_images()
+    for mode, heads in (("m1", 2), ("r1", 5 + 1)):
+        rand = gpu.engine(2).random_origins(2, np.random.default_rng(1))
+        ref = cpu.infer(lr, hr, cai_mode=mode, process_num=2,
+                        rand_origins=rand if mode == "r1" else None)
+        before = _head_launches()
+        got = gpu.infer(lr, hr, cai_mode=mode, process_num=2,
+                        rand_origins=rand if mode == "r1" else None)
+        ran = tuple(a - b for a, b in zip(_head_launches(), before))
+        assert ran == (heads, heads), (mode, ran)
+        rel = np.abs(got - ref).max() / np.abs(ref).max()
+        assert rel <= 3e-2, (mode, rel)

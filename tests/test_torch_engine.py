@@ -15,9 +15,13 @@ import torch
 import __graft_entry__ as graft
 import chip_smoke
 from patchfusion_tpu.engine.inference import PatchFusionInference
-from patchfusion_tpu_torch.api import PatchFusion
+from patchfusion_tpu.models.patchfusion import TileConfig
+from patchfusion_tpu_torch.api import BaselinePretrain, PatchFusion
 from patchfusion_tpu_torch.engine.inference import _parse_mode
-from patchfusion_tpu_torch.models.builder import build_patchfusion
+from patchfusion_tpu_torch.models.builder import (build_patchfusion,
+                                                  build_zoedepth_branch)
+from patchfusion_tpu_torch.tools import infer as infer_cli
+from patchfusion_tpu_torch.tools import test as test_cli
 
 from .torch_parity import port_net, rel_err, tiny_jax
 
@@ -80,6 +84,26 @@ def test_modes_differ(outputs):
     assert np.abs(r4 - m2).max() > 1e-4
 
 
+def test_rn_at_a_raw_shape_with_a_nearest_resize_matches_jax(engines):
+    """r4 at image_raw_shape (100, 140): the 84x112 reensemble canvas and
+    the 42x56 tiles are moved to raw size with 'nearest' (84 -> 100 is a
+    ratio where F.interpolate's float32 rule reads another row)."""
+    jax_engine, port = engines
+    tc = TileConfig((100, 140), (2, 2),
+                    jax_engine.tile_cfg.patch_process_shape)
+    jeng = PatchFusionInference(jax_engine.net, jax_engine.variables, tc,
+                                process_num=PROCESS_NUM)
+    rng = np.random.default_rng(11)
+    lr = rng.random((1, 42, 56, 3), dtype=np.float32)
+    hr = rng.random((100, 140, 3), dtype=np.float32)
+    rand = jeng.random_origins(4, np.random.default_rng(5))
+    want = np.asarray(jeng.infer(lr, hr, cai_mode="r4", rand_origins=rand))
+    got = port.infer(lr, hr, cai_mode="r4", process_num=PROCESS_NUM,
+                     image_raw_shape=(100, 140), rand_origins=rand)
+    assert got.shape == want.shape == (100, 140)
+    assert rel_err(got, want) <= TOL
+
+
 def test_random_origins_match_jax(engines):
     jax_engine, port = engines
     a = jax_engine.random_origins(8, np.random.default_rng(9))
@@ -114,8 +138,11 @@ def test_entry_points_default_to_the_card():
     """PatchFusion.from_config and build_patchfusion run on the card unless
     the caller asks for the CPU; without CUDA the default raises instead of
     falling back."""
-    for fn in (PatchFusion.from_config, build_patchfusion):
+    for fn in (PatchFusion.from_config, PatchFusion.from_pretrained,
+               BaselinePretrain, build_patchfusion, build_zoedepth_branch):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert test_cli.parse_args(["cfg.py"]).device == "cuda"
+    assert infer_cli.parse_args(["image.png"]).device == "cuda"
     cfg = chip_smoke.tiny_config()
     if torch.cuda.is_available():
         model = PatchFusion.from_config(cfg)
@@ -125,6 +152,10 @@ def test_entry_points_default_to_the_card():
         PatchFusion.from_config(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_patchfusion(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BaselinePretrain(cfg["fine_branch"], 1e-3, 80)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PatchFusion.from_pretrained(str(chip_smoke.ROOT))
     net, _ = build_patchfusion(cfg, device="cpu")
     assert next(net.parameters()).device.type == "cpu"
 
@@ -150,9 +181,12 @@ def test_profile_busy_time_is_the_union_of_intervals():
 
 
 def test_import_pulls_in_no_jax_or_triton():
-    code = ("import sys, patchfusion_tpu_torch, patchfusion_tpu_torch.api, "
-            "patchfusion_tpu_torch.convert.from_jax, "
-            "patchfusion_tpu_torch.profile_request; "
+    """No module of the port (every module of every subpackage: data,
+    utils and tools included) imports JAX, flax, the JAX package or
+    triton."""
+    code = ("import importlib, pkgutil, sys, patchfusion_tpu_torch as p; "
+            "[importlib.import_module(m.name) for m in "
+            "pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'patchfusion_tpu', 'triton')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -39,6 +39,49 @@ def test_interpolate_matches_jax(mode, align, in_hw, out_hw, scale):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+# 84 -> 100, where F.interpolate's float32 scale picks another row (75),
+# the shipped rN ratios (reensemble -> raw for vitl/vitb 4K tiles, the
+# BEiT family's, and a tile's process -> raw size), and a small grid
+NEAREST_SIZES = ([(84, 100), (1568, 2160), (2072, 3840), (1536, 2160),
+                  (2048, 3840), (392, 540), (518, 960)]
+                 + [(i, o) for i in (3, 7, 13, 42) for o in (5, 11, 50, 97)])
+
+
+@pytest.mark.parametrize("in_size,out_size", NEAREST_SIZES)
+def test_nearest_matches_jax_exactly(in_size, out_size):
+    """The port's nearest reads the JAX package's source rows and columns:
+    its index equals resize_matrix's, and interpolate gives the same
+    array, exactly."""
+    want_idx = jresize.resize_matrix(out_size, in_size, "nearest").argmax(1)
+    got_idx = resize.nearest_index(out_size, in_size).numpy()
+    np.testing.assert_array_equal(got_idx, want_idx)
+    x = np.random.default_rng(in_size).standard_normal(
+        (1, in_size, 3, 2)).astype(np.float32)
+    want = np.asarray(jresize.interpolate(jnp.asarray(x), (out_size, 5),
+                                          mode="nearest"))
+    got = resize.interpolate(torch.from_numpy(x), (out_size, 5),
+                             mode="nearest").numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_nearest_parts_from_f_interpolate_at_84_to_100():
+    """The row where F.interpolate's float32 rule and the exact one part."""
+    x = torch.arange(84.0).reshape(1, 1, 84, 1)
+    torch_rule = torch.nn.functional.interpolate(x, size=(100, 1),
+                                                 mode="nearest")
+    got = resize.interpolate_nchw(x, (100, 1), mode="nearest")
+    assert (got != torch_rule).nonzero()[:, 2].tolist() == [75]
+    assert got[0, 0, 75, 0].item() == 63.0
+
+
+def test_host_resize_matrices_match_jax():
+    """The numpy resize_matrix the metrics use is the JAX package's."""
+    for args in [(29, 12, "bilinear", False), (16, 7, "bilinear", True),
+                 (28, 37, "bicubic", True), (100, 84, "nearest", False)]:
+        np.testing.assert_array_equal(resize.resize_matrix(*args),
+                                      jresize.resize_matrix(*args))
+
+
 def test_interpolate_nchw_axes():
     x = torch.randn(2, 3, 7, 9)
     got = resize.interpolate_nchw(x, (16, 20), align_corners=True)
