@@ -53,8 +53,27 @@
    Prints the snapshot's write and load times and the phase's peak memory.
 8. Runs the tiny config in bf16 on the card (with the kernels, einsum and
    pallas attention) against the same weights in float32 on the CPU.
-9. Prints one JSON line with the kernels' launches, errors, times and
-   bounds, then {"ok": true, "device": {...}} as the last line.
+9. The training path (phase `train`): (a) the three head wrappers with
+   inputs that require grad at B = 4 (bf16 maps as NCHW views, f32
+   weights): one kernel launch forward and none backward, the recomputed
+   twin's gradients against autograd through the twin, and the backward's
+   time against the forward's; (b) the tiny config's train step on the
+   card, f32 and --amp, against the f32 CPU port on the same weights; (c)
+   the DA-vitl fusion stage through tools.train (its main, in-process)
+   with --amp at the recipe's batch of 4 over 4 synthetic 4K U4K scenes
+   (2 epochs of 5 steps, m1 validation, a checkpoint per epoch): finite
+   losses, trainable weights and BN statistics moved, frozen branches
+   bit-identical, clb_pt and logbinomial_depth launched 3 times a step;
+   images/s over the epochs' wall time, the warm step's median time, the
+   loader's waits and peak memory; (d) save at step 3 and resume into a
+   fresh model (restore_train_state, as --resume does): the same weights
+   and losses; (e) one step with train_remat off and on: the same loss,
+   each one's peak; (f) 2 steps of tools.train_branch for vitl coarse
+   (f32).
+10. Prints one JSON line with the kernels' launches (the main path's, and
+   for the head kernels the eval phase's and the training steps'),
+   errors, times (the head kernels' recompute backward too) and bounds,
+   then {"ok": true, "device": {...}} as the last line.
 
 Any failed check raises, so the script exits non-zero without the last line.
 It needs one CUDA card and nothing but this repository.
@@ -364,30 +383,38 @@ def _host_us(fn, calls: int = 20, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def _device_ms(fn, calls: int = 20) -> float:
-    """Kernel time per call on the card: the sum of the durations of the
-    device events torch.profiler records over `calls` calls, divided by
-    `calls`."""
+def _device_ms(fn, calls: int = 20, attempts: int = 3):
+    """-> (kernel time per call on the card, profiling windows used): the
+    sum of the durations of the device events torch.profiler records over
+    `calls` calls, divided by `calls`. A profiling window in which the
+    profiler delivered no device event at all (it has happened once in
+    this script's runs, on an SDPA row that other runs recorded) is
+    profiled again, up to `attempts` windows; none at all fails. The rows
+    keep the count of windows, so a recurring empty profile shows."""
     import torch
 
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for window in range(1, attempts + 1):
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(us > 0, "the profiler recorded no device time")
-    return us / calls / 1e3
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / calls / 1e3, window
+        say("the profiler recorded no device time; profiling again")
+    check(False, f"the profiler recorded no device time in {attempts} "
+          "windows")
 
 
 def _timings(fn, prefix: str = "") -> dict:
     """The four times of fn (see the module note), keys prefixed."""
     out = {"ms": _time_ms(fn)}
     out["ms_batched"] = _time_batched_ms(fn)
-    out["device_ms"] = _device_ms(fn)
+    out["device_ms"], out["device_windows"] = _device_ms(fn)
     out["host_us"] = _host_us(fn)
     return {prefix + k: v for k, v in out.items()}
 
@@ -1074,6 +1101,514 @@ def phase_tiny():
         check(rel <= TINY_TOL, f"tiny config ({impl}) differs by {rel:.3g}")
 
 
+# ---------------------------------------------------------------------------
+# phase train: the fusion-stage training path
+# ---------------------------------------------------------------------------
+
+# the recompute backward's gradients against autograd through the twin on
+# the same inputs, relative to each gradient's max: f32 sums in another
+# order (the resizes' backward uses atomics); a bf16 input's gradient is
+# rounded to bf16 last, where such a difference may reach the neighbouring
+# bf16 value
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+TRAIN_STEPS_PER_EPOCH = 5  # 20 crops of 4 synthetic 4K scenes, batch 4
+# a resumed state against the live one on the same batch, relative loss:
+# the first forward reads the same weights (cuDNN's and the resizes'
+# atomics aside); the second follows one optimizer step on each side,
+# whose backward sums with atomics in any order
+RESUME_TOL = (1e-5, 1e-3)
+REMAT_TOL = 1e-5   # remat vs not: the same forward, relative loss
+# the tiny config's train step on the card against the f32 CPU port:
+# f32 (TF32 off) loss relative; each gradient relative to its max, the
+# U-Net encoder's apart (its BatchNorms see few values: on these weights
+# the CPU's own f32 gradient there sits 3.0e-3 of max from float64, the
+# rest within 5e-5); --amp (bf16 autocast, the head kernels) loss
+TINY_TRAIN_TOL = (1e-5, 1e-3, 1e-2, 5e-2)
+# and the --amp gradients' cosine to the f32 CPU's outside the encoder
+# (with the CPU's autocast 0.999 on these weights and this batch, 0.72
+# with the encoder; a permuted or wrong gradient sits near 0)
+AMP_COS = 0.95
+ENCODER = ("guided_fusion.inc.", "guided_fusion.down_conv_list.")
+
+
+def _grad_leaves(b, dev):
+    """The head's inputs at B = b (bf16 maps as permuted views of NCHW
+    leaves, as the model passes them; f32 weights, as the --amp masters),
+    each a leaf that requires grad: (p, t, centers, last_cat, cond_lo,
+    w1, b1, w2, b2) as (leaf, argument) pairs."""
+    import torch
+
+    pt, tt, ct, lt, cdt, wl = _head_inputs(b, torch.bfloat16, "nchw-view",
+                                           dev)
+    out = [(x.detach().clone().requires_grad_(),) * 2 for x in (pt, tt)]
+    for view in (ct, lt, cdt):
+        leaf = view.permute(0, 3, 1, 2).detach().clone().requires_grad_()
+        out.append((leaf, leaf.permute(0, 2, 3, 1)))
+    out += [(w.float().detach().clone().requires_grad_(),) * 2 for w in wl]
+    return out
+
+
+HEAD_ARGS = {"clb_pt": (3, 4, 5, 6, 7, 8), "logbinomial_depth": (0, 1, 2),
+             "clb_logbinomial_depth": (3, 4, 2, 5, 6, 7, 8)}
+
+
+def _head_gradients():
+    """Each head wrapper with inputs that require grad, at B = 4 on the
+    head's shapes: one kernel launch forward, none backward; the recompute
+    backward's gradients against autograd through the twin (GRAD_TOL), and
+    the backward's time against the kernel forward's and the twin's own
+    backward."""
+    import torch
+    from patchfusion_tpu_torch.ops import fused_head as fh
+
+    dev = torch.device("cuda")
+    rows = {}
+    for name, idx in HEAD_ARGS.items():
+        wrapper, plain = getattr(fh, name), getattr(fh, name + "_plain")
+        got = [_grad_leaves(4, dev)[i] for i in idx]
+        want = [_grad_leaves(4, dev)[i] for i in idx]
+        before = counts()[name]
+        out = wrapper(*(a for _, a in got))
+        check(counts()[name] == before + 1, f"{name}: forward launches")
+        out = out if isinstance(out, tuple) else (out,)
+        ref = plain(*(a for _, a in want))
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        gen = torch.Generator(dev).manual_seed(5)
+        cot = [torch.randn(o.shape, device=dev, generator=gen) for o in out]
+        leaves = [leaf for leaf, _ in got]
+        g = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+        w = torch.autograd.grad(ref, [leaf for leaf, _ in want], cot,
+                                retain_graph=True)
+        torch.cuda.synchronize()
+        check(counts()[name] == before + 1, f"{name}: backward launched")
+        errs = []
+        for leaf, gi, wi in zip(leaves, g, w):
+            check(gi.shape == leaf.shape and gi.dtype == leaf.dtype,
+                  f"{name}: gradient {gi.shape} {gi.dtype}")
+            check(bool(torch.isfinite(gi).all()), f"{name}: gradient nan")
+            rel = ((gi.float() - wi.float()).abs().max()
+                   / wi.float().abs().max()).item()
+            tol = GRAD_TOL[str(leaf.dtype).split(".")[-1]]
+            check(rel <= tol, f"{name}: gradient {rel:.3g} from the "
+                  f"twin's (tolerance {tol})")
+            errs.append(rel)
+        args = [a.detach() for _, a in got]
+        device_ms, windows = _device_ms(lambda: torch.autograd.grad(
+            out, leaves, cot, retain_graph=True))
+        row = {"max_grad_rel_err": max(errs),
+               "forward_ms": _time_ms(lambda: wrapper(*args)),
+               "backward_ms": _time_ms(lambda: torch.autograd.grad(
+                   out, leaves, cot, retain_graph=True)),
+               "backward_device_ms": device_ms,
+               "backward_device_windows": windows,
+               "twin_backward_ms": _time_ms(lambda: torch.autograd.grad(
+                   ref, [leaf for leaf, _ in want], cot,
+                   retain_graph=True))}
+        rows[name] = row
+        say(f"train: {name} gradients (B=4, bf16 maps, f32 weights): "
+            + json.dumps(row))
+        del out, ref, g, w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _train_data(root: Path):
+    """4 synthetic 4K U4K scenes: a train split of 20 crops (each scene 5
+    times) and a val split of one scene."""
+    split = Path(write_u4k_split(root, 4, RAW_SHAPE, seed=3))
+    lines = split.read_text().splitlines(keepends=True)
+    train = root / "train.txt"
+    train.write_text("".join(lines * TRAIN_STEPS_PER_EPOCH))
+    val = root / "val1.txt"
+    val.write_text(lines[0])
+    return str(train), str(val)
+
+
+def _train_options(root: Path, train: str, val: str, epochs: int):
+    return [f"model.config.load_branch=False",
+            f"train_dataloader.dataset.data_root={root}",
+            f"train_dataloader.dataset.split={train}",
+            "train_dataloader.num_workers=6",
+            f"val_dataloader.dataset.data_root={root}",
+            f"val_dataloader.dataset.split={val}",
+            f"train_cfg.max_epochs={epochs}", "train_cfg.val_interval=2",
+            "train_cfg.save_checkpoint_interval=1",
+            "train_cfg.log_interval=1",
+            "train_cfg.train_log_img_interval=100000"]
+
+
+@contextlib.contextmanager
+def _spy_training(per_step: list, created: list):
+    """Counts each train step's kernel launches into per_step and keeps
+    a CPU copy of the weights as create_train_state leaves them in
+    created."""
+    from patchfusion_tpu_torch.engine import training
+
+    make_step, create = training.make_train_step, training.create_train_state
+
+    def counted_make(*a, **k):
+        step = make_step(*a, **k)
+
+        def counted(state, batch):
+            before = counts()
+            logs = step(state, batch)
+            after = counts()
+            per_step.append({n: after[n] - before[n] for n in after})
+            return logs
+        return counted
+
+    def snap_create(*a, **k):
+        state = create(*a, **k)
+        created.append({
+            "trainable": {n: p.detach().cpu().clone()
+                          for n, p in state.trainable.items()},
+            "frozen": {n: p.detach().cpu().clone()
+                       for n, p in state.frozen.items()},
+            "batch_stats": {n: b.cpu().clone()
+                            for n, b in state.batch_stats.items()}})
+        return state
+
+    training.make_train_step, training.create_train_state = \
+        counted_make, snap_create
+    try:
+        yield
+    finally:
+        training.make_train_step, training.create_train_state = \
+            make_step, create
+
+
+def _train_cli(root: Path, train: str, val: str):
+    """The vitl fusion stage through tools.train (in-process: its main is
+    what `python -m` runs) with --amp at batch 4: 2 epochs of 5 steps, m1
+    validation after epoch 2, a checkpoint per epoch."""
+    from patchfusion_tpu_torch.tools import train as train_cli
+
+    per_step, created = [], []
+    argv = [str(ROOT / VITL_CONFIG), "--amp", "--seed", "0", "--work-dir",
+            str(root / "work"), "--cfg-options",
+            *_train_options(root, train, val, 2)]
+    reset_counts()
+    t = time.perf_counter()
+    with attn_impl("einsum"), _spy_training(per_step, created):
+        trainer = train_cli.main(argv)
+    wall = time.perf_counter() - t
+    state, start = trainer.state, created[0]
+    steps = 2 * TRAIN_STEPS_PER_EPOCH
+    check(state.step == steps, f"train: {state.step} steps, not {steps}")
+    losses = [x for e in trainer.epoch_stats for x in e["losses"]]
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
+          f"train: losses {losses}")
+    for i, n in enumerate(per_step):
+        check(n["clb_pt"] == 3 and n["logbinomial_depth"] == 3
+              and n["vit_attention"] == 0
+              and n["clb_logbinomial_depth"] == 0,
+              f"train step {i}: launches {n}")
+    moved = sum(not torch_equal(p, start["trainable"][n])
+                for n, p in state.trainable.items())
+    check(moved >= len(start["trainable"]) - 2 * 6,
+          f"train: only {moved} of {len(start['trainable'])} trainable "
+          "tensors moved")
+    check(all(torch_equal(p, start["frozen"][n])
+              for n, p in state.frozen.items()),
+          "train: a frozen weight moved")
+    stats = {n: b for n, b in state.batch_stats.items()
+             if n.endswith("running_var")}
+    check(all(not torch_equal(b, start["batch_stats"][n])
+              for n, b in stats.items()), "train: BN statistics did not move")
+    metrics = trainer.val_metrics.get(2, {})
+    check(bool(metrics) and all(map(math.isfinite, metrics.values())),
+          f"train: val metrics {metrics}")
+    for e in (1, 2):
+        check((root / "work" / f"checkpoint_{e:02d}.ckpt").exists(),
+              f"train: no checkpoint for epoch {e}")
+    # one train sample (4K decode, rotation, colour, crop) on one thread
+    t = time.perf_counter()
+    trainer.train_loader.dataset[0]
+    sample_s = time.perf_counter() - t
+    epochs = trainer.epoch_stats
+    step_s = [x for e in epochs for x in e["step_seconds"]]
+    waits = [x for e in epochs for x in e["data_wait_seconds"]]
+    warm = step_s[1:]
+    seconds = [e["seconds"] for e in epochs]
+    out = {"steps": steps, "losses": losses,
+           # the end-to-end rate: every image over the epochs' wall time
+           # (loader waits, the first step and any slow step included)
+           "images_per_s": 4 * steps / sum(seconds),
+           "epoch_seconds": seconds,
+           "epoch_images_per_s": [4 * e["steps"] / e["seconds"]
+                                  for e in epochs],
+           # the step alone, between CUDA events once the batch is there
+           "first_step_s": step_s[0],
+           "warm_step_s_median": float(np.median(warm)),
+           "warm_step_s": warm,
+           "data_wait_s": [e["data_wait_seconds"] for e in epochs],
+           "data_wait_s_median": float(np.median(waits)),
+           "data_wait_s_max": max(waits),
+           "loader_sample_s": sample_s,
+           "peak_gib": max(e["peak_allocated_bytes"]
+                           for e in epochs) / 2**30,
+           "launches_per_step": per_step,
+           "launches": {name: sum(n[name] for n in per_step)
+                        for name in per_step[0]},
+           "wall_s": wall, "val_metrics": metrics}
+    say(f"train: vitl fusion, batch 4, --amp: {steps} steps in "
+        f"{sum(seconds):.3f} s of epochs ({out['images_per_s']:.3f} "
+        f"images/s; per epoch {[round(x, 3) for x in seconds]} s), warm "
+        f"step median {out['warm_step_s_median']:.3f} s, first step "
+        f"{step_s[0]:.3f} s, loader wait median "
+        f"{out['data_wait_s_median']:.4f} s and max "
+        f"{out['data_wait_s_max']:.3f} s (per epoch, the first batch: "
+        f"{[round(e['data_wait_seconds'][0], 3) for e in epochs]} s; one "
+        f"sample alone {sample_s:.3f} s), "
+        f"peak allocated {out['peak_gib']:.2f} GiB, losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, launches "
+        f"{out['launches']}, wall {wall:.1f} s")
+    return trainer, out
+
+
+def torch_equal(a, b) -> bool:
+    """Bitwise equality of a tensor on any device with a CPU copy."""
+    import torch
+
+    return bool(torch.equal(a.detach().cpu(), b))
+
+
+def _fixed_batch(trainer):
+    from patchfusion_tpu_torch.engine.trainer import STEP_KEYS, collect_input
+    from patchfusion_tpu_torch.engine.training import to_device_batch
+
+    batch = next(iter(trainer.train_loader))
+    return to_device_batch(collect_input(batch, STEP_KEYS), "cuda",
+                           STEP_KEYS)
+
+
+def _vitl_state(remat: bool = False):
+    """A fresh seeded vitl fusion-stage state (seed 0, --amp)."""
+    import torch
+    from patchfusion_tpu_torch.api import PatchFusion
+    from patchfusion_tpu_torch.config import Config
+    from patchfusion_tpu_torch.engine import training
+
+    cfg = Config.fromfile(str(ROOT / VITL_CONFIG)).model.config.to_dict()
+    cfg.update(load_branch=False, train_remat=remat)
+    net = PatchFusion.from_config(cfg, device="cuda", seed=0).net
+    return training.create_train_state(
+        net, training.make_onecycle_optimizer(1e-4, 10),
+        frozen_dtype=torch.bfloat16, amp=True)
+
+
+def _resume(root: Path, batch):
+    """Save and resume at vitl width: a fresh seeded state takes 3 steps on
+    one batch and is saved (save_checkpoint); a second fresh model
+    restored from that file (restore_train_state, as --resume does) holds
+    the same weights, and the two then take two more steps each on the
+    batch with the same losses (RESUME_TOL), at the schedule's peak: the
+    weights, BN statistics, Adam moments and schedule position came
+    back."""
+    from patchfusion_tpu_torch.engine import checkpoint, training
+
+    ckpt = root / "resume.ckpt"
+    step = training.make_train_step()
+    live = _vitl_state()
+    for _ in range(3):
+        step(live, batch)
+    checkpoint.save_checkpoint(str(ckpt), live, epoch=1)
+    state = _vitl_state()
+    epoch = checkpoint.restore_train_state(
+        state, checkpoint.load_checkpoint(str(ckpt)))
+    check(epoch == 1 and state.step == live.step == 3,
+          f"resume: epoch {epoch}, step {state.step}")
+    check(all(torch_equal(p, live.trainable[n].detach().cpu())
+              for n, p in state.trainable.items()),
+          "resume: restored weights differ from the live ones")
+    losses = []
+    for _ in range(2):
+        a = float(step(live, batch)["total_loss"])
+        b = float(step(state, batch)["total_loss"])
+        losses.append((a, b))
+    for (a, b), tol in zip(losses, RESUME_TOL):
+        check(abs(a - b) <= tol * abs(a),
+              f"resume: loss {b} against the live {a} (tolerance {tol})")
+    say(f"train: save at step 3 and resume: losses (live, restored) "
+        f"{losses} (tolerance {RESUME_TOL}), "
+        f"{ckpt.stat().st_size / 2**20:.1f} MiB checkpoint, lr "
+        f"{live.tx.lr(3):.3g} at step 3")
+    return {"losses": losses, "ckpt_mib": ckpt.stat().st_size / 2**20}
+
+
+def _remat(batch):
+    """One step with and without train_remat from the same seeded weights
+    on the same batch: the same loss (REMAT_TOL), the peaks of each, and
+    the PF head's kernels launched again in the recompute."""
+    import torch
+    from patchfusion_tpu_torch.engine import training
+
+    out = {}
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        state = _vitl_state(remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        loss = float(training.make_train_step()(state, batch)["total_loss"])
+        torch.cuda.synchronize()
+        launches = counts()
+        out[remat] = {"loss": loss, "launches": launches,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "state_gib": base / 2**30}
+        del state
+    torch.cuda.empty_cache()
+    rel = abs(out[True]["loss"] - out[False]["loss"]) / abs(
+        out[False]["loss"])
+    check(rel <= REMAT_TOL, f"remat loss differs by {rel:.3g}")
+    check(out[True]["launches"]["clb_pt"] == 4
+          and out[False]["launches"]["clb_pt"] == 3,
+          f"remat launches {out[True]['launches']} vs "
+          f"{out[False]['launches']}")
+    say(f"train: one step, remat off / on: loss {out[False]['loss']:.6f} / "
+        f"{out[True]['loss']:.6f} ({rel:.3g}, tolerance {REMAT_TOL}); peak "
+        f"allocated {out[False]['peak_gib']:.2f} / {out[True]['peak_gib']:.2f}"
+        f" GiB (state before the step {out[False]['state_gib']:.2f} GiB); "
+        f"clb_pt launches {out[False]['launches']['clb_pt']} / "
+        f"{out[True]['launches']['clb_pt']}")
+    return {str(k): v for k, v in out.items()}
+
+
+def _branch(root: Path, train: str):
+    """Two steps of tools.train_branch for vitl coarse (f32, batch 4)."""
+    import torch
+    from patchfusion_tpu_torch.tools import train_branch
+
+    eight = root / "train8.txt"
+    eight.write_text("".join(Path(train).read_text().splitlines(
+        keepends=True)[:8]))
+    argv = [str(ROOT / BASELINE_CONFIG.format("coarse")), "--seed", "0",
+            "--work-dir", str(root / "branch"), "--cfg-options",
+            f"train_dataloader.dataset.data_root={root}",
+            f"train_dataloader.dataset.split={eight}",
+            "train_dataloader.num_workers=6", "train_cfg.max_epochs=1",
+            "train_cfg.log_interval=1"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    with attn_impl("einsum"):
+        state, losses = train_branch.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check(state.step == 2 and all(map(math.isfinite, losses)),
+          f"branch: {state.step} steps, losses {losses}")
+    check((root / "branch" / "checkpoint_01.ckpt").exists(),
+          "branch: no weights file")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = counts()
+    say(f"train: tools.train_branch vitl coarse, batch 4, f32: 2 steps, "
+        f"losses {losses}, peak allocated {peak:.2f} GiB, {wall:.1f} s; "
+        f"head kernels {launches['clb_pt']} (the f32 head is unfused)")
+    del state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "peak_gib": peak, "wall_s": wall}
+
+
+def _tiny_train():
+    """The tiny config's train step on the card, f32 and --amp, against the
+    f32 CPU port on the same seeded weights and batch (TINY_TRAIN_TOL)."""
+    import torch
+    from patchfusion_tpu_torch.api import PatchFusion
+    from patchfusion_tpu_torch.engine import training
+    from patchfusion_tpu_torch.models.losses import SILogLoss
+
+    rng = np.random.default_rng(12)
+    batch = {"image_lr": rng.random((4, 42, 56, 3), dtype=np.float32),
+             "crops_image_hr": rng.random((4, 42, 56, 3), dtype=np.float32),
+             "crop_depths": rng.random((4, 42, 56, 1), dtype=np.float32)
+             * 40 + 1,
+             "bboxs": np.array([[0, 0, 960, 540], [960, 540, 1920, 1080],
+                                [2880, 0, 3840, 540],
+                                [1920, 1620, 2880, 2160]], np.float32)}
+    out = {}
+    # seeded on the CPU, and the same weights on the card (the two devices'
+    # generators draw other numbers from one seed)
+    weights = PatchFusion.from_config(tiny_config(), device="cpu",
+                                      seed=4).net.state_dict()
+    for name, dev, amp in (("cpu", "cpu", False), ("card", "cuda", False),
+                           ("card_amp", "cuda", True)):
+        model = PatchFusion.from_config(tiny_config(), device=dev, seed=4)
+        model.net.load_state_dict(weights)
+        state = training.create_train_state(
+            model.net, training.make_onecycle_optimizer(1e-4, 10),
+            frozen_dtype=torch.bfloat16 if amp else None, amp=amp)
+        reset_counts()
+        loss, _ = training.fusion_loss(
+            state, training.to_device_batch(batch, dev, batch.keys()),
+            SILogLoss(), 1e-3, 80.0)
+        out[name] = (float(loss), {n: p.grad.detach().double().cpu()
+                                   for n, p in state.trainable.items()},
+                     counts())
+    lf, gf, _ = out["cpu"]
+    loss_tol, grad_tol, enc_tol, amp_tol = TINY_TRAIN_TOL
+    rel = abs(out["card"][0] - lf) / abs(lf)
+    check(rel <= loss_tol, f"tiny train f32 loss {rel:.3g} from the CPU")
+    errs = {n: ((g - gf[n]).abs().max() / gf[n].abs().max()).item()
+            for n, g in out["card"][1].items() if gf[n].abs().max() > 0}
+    worst = max(e for n, e in errs.items() if not n.startswith(ENCODER))
+    worst_enc = max(e for n, e in errs.items() if n.startswith(ENCODER))
+    check(worst <= grad_tol and worst_enc <= enc_tol,
+          f"tiny train f32 gradients {worst:.3g} (encoder {worst_enc:.3g}) "
+          "from the CPU")
+    la, ga, launches = out["card_amp"]
+    amp_rel = abs(la - lf) / abs(lf)
+    check(amp_rel <= amp_tol, f"tiny train --amp loss {amp_rel:.3g} from "
+          "the f32 CPU")
+    check(launches["clb_pt"] == 3 and launches["logbinomial_depth"] == 3,
+          f"tiny train --amp launches {launches}")
+    def cosine(names):
+        a, b = (torch.cat([g[n].flatten() for n in names]) for g in (gf, ga))
+        return torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+
+    cos = cosine(sorted(gf))
+    cos_rest = cosine([n for n in sorted(gf) if not n.startswith(ENCODER)])
+    check(cos_rest >= AMP_COS, f"tiny train --amp gradients: cosine "
+          f"{cos_rest:.4f} to the f32 CPU's outside the encoder")
+    say(f"train: tiny config, card vs f32 CPU: f32 loss {rel:.3g}, "
+        f"gradients {worst:.3g} of max, the U-Net encoder's {worst_enc:.3g} "
+        f"(tolerances {loss_tol}, {grad_tol}, {enc_tol}); "
+        f"--amp loss {amp_rel:.3g} (tolerance {amp_tol}), gradient cosine "
+        f"{cos_rest:.4f} outside the encoder (at least {AMP_COS}), "
+        f"{cos:.4f} with it, head launches {launches['clb_pt']} + "
+        f"{launches['logbinomial_depth']}")
+    return {"f32_loss_rel": rel, "f32_grad_rel": worst,
+            "f32_encoder_grad_rel": worst_enc, "amp_loss_rel": amp_rel,
+            "amp_grad_cos": cos, "amp_grad_cos_outside_encoder": cos_rest}
+
+
+def phase_train():
+    """Step 9: the fusion-stage training path on the card."""
+    import tempfile
+
+    import torch
+
+    out = {"heads": _head_gradients(), "tiny": _tiny_train()}
+    with tempfile.TemporaryDirectory(prefix="pf_train_") as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        train, val = _train_data(root)
+        say(f"train: synthetic U4K train split, 4 scenes at {RAW_SHAPE[0]}x"
+            f"{RAW_SHAPE[1]}, written in {time.perf_counter() - t:.1f} s")
+        trainer, out["fusion"] = _train_cli(root, train, val)
+        batch = _fixed_batch(trainer)
+        del trainer
+        torch.cuda.empty_cache()
+        out["resume"] = _resume(root, batch)
+        torch.cuda.empty_cache()
+        out["remat"] = _remat(batch)
+        out["branch"] = _branch(root, train)
+    say("train summary: " + json.dumps(
+        {k: v for k, v in out.items() if k != "heads"}))
+    return out
+
+
 def main(argv) -> int:
     root = ROOT
     if argv[:1] == ["--time-only"] and len(argv) == 2:
@@ -1104,6 +1639,7 @@ def main(argv) -> int:
     del model
     torch.cuda.empty_cache()
     phase_tiny()
+    tr = phase_train()
     launches = {"clb_pt": main_launches["clb_pt"],
                 "logbinomial_depth": main_launches["logbinomial_depth"],
                 "vit_attention": pallas_launches["vit_attention"],
@@ -1122,12 +1658,24 @@ def main(argv) -> int:
                         "source": KERNEL_SOURCES[name],
                         "replaces": REPLACES[name],
                         "launches": launches[name],
-                        **({"launches_eval": ev["launches"][name]}
+                        **({"launches_eval": ev["launches"][name],
+                            "launches_train":
+                                tr["fusion"]["launches"][name]}
                            if name in ("clb_pt", "logbinomial_depth")
                            else {}),
+                        **({"backward_ms": tr["heads"][name]["backward_ms"],
+                            "backward_device_ms":
+                                tr["heads"][name]["backward_device_ms"],
+                            "backward_device_windows":
+                                tr["heads"][name]["backward_device_windows"],
+                            "twin_backward_ms":
+                                tr["heads"][name]["twin_backward_ms"]}
+                           if name in tr["heads"] else {}),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "ms_batched": r["ms_batched"],
-                        "device_ms": r["device_ms"], "host_us": r["host_us"],
+                        "device_ms": r["device_ms"],
+                        "device_windows": r["device_windows"],
+                        "host_us": r["host_us"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "bound_share": r["bound_share"],
@@ -1135,7 +1683,8 @@ def main(argv) -> int:
                         "library_ms": r["library_ms"],
                         **{key: r[key] for key in (
                             "variant", "library_ms_batched",
-                            "library_device_ms", "library_host_us")
+                            "library_device_ms", "library_device_windows",
+                            "library_host_us")
                            if key in r}})
     say(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -29,9 +29,11 @@ import torch
 import torch.nn as nn
 
 from patchfusion_tpu_torch.engine.checkpoint import (
-    load_patchfusion_from_torch, load_patchfusion_hub_dir,
-    load_torch_state_dict)
+    load_fusion_state_dict, load_patchfusion_from_torch,
+    load_patchfusion_hub_dir, load_torch_state_dict, read_weights,
+    save_params)
 from patchfusion_tpu_torch.engine.inference import PatchFusionInference
+from patchfusion_tpu_torch.engine.training import batch_stats, split_params
 from patchfusion_tpu_torch.models.builder import (build_patchfusion,
                                                   build_zoedepth_branch,
                                                   check_device)
@@ -151,6 +153,31 @@ class PatchFusion:
         load_patchfusion_hub_dir(net, path)
         return cls(net.to(device=device, dtype=dtype), tile_cfg, config,
                    process_num)
+
+    # -- persistence (the reference's load_dict / get_save_dict) -------------
+
+    def get_save_dict(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The fusion-only weights (the reference strips the frozen
+        branches, patchfusion.py:179-187): {"params", "batch_stats"} by
+        state_dict names."""
+        return {"params": split_params(self.net)[0],
+                "batch_stats": batch_stats(self.net)}
+
+    def save(self, path: str) -> None:
+        """Write get_save_dict() as the port's weights file
+        (engine/checkpoint.save_params)."""
+        d = self.get_save_dict()
+        save_params(path, d["params"], d["batch_stats"])
+
+    def load_dict(self, path: str) -> None:
+        """Merge one of the port's weight files (a `save` file or a
+        training checkpoint) over the current weights, strict=False: keys
+        the file lacks keep their values, keys the net lacks raise. The
+        cached engines are dropped."""
+        params, stats = read_weights(path)
+        with torch.no_grad():
+            load_fusion_state_dict(self.net, {**params, **stats})
+        self._engines.clear()
 
     def engine(self, process_num: Optional[int] = None,
                tile_cfg: Optional[TileConfig] = None

@@ -2,7 +2,8 @@
 patchfusion_tpu/data/transforms.py), matching the reference
 estimator/datasets/transformers/ semantics:
   aug_flip / aug_color (gamma+brightness+per-channel color) / aug_rotate
-  (PIL bilinear image, nearest depth) / random_crop (returns crop origin).
+  (bilinear image, nearest depth, in scipy where the JAX package calls
+  cv2) / random_crop (returns crop origin).
 
 The network-input resize (`HostResizer`) reproduces the reference `Resize`
 transform (bilinear align_corners=True + multiple-of rounding,
@@ -46,27 +47,59 @@ def aug_color(image: np.ndarray, rng: np.random.Generator,
     return image
 
 
+def rotation_matrix(center: Tuple[float, float], angle: float
+                    ) -> np.ndarray:
+    """The 2x3 matrix cv2.getRotationMatrix2D(center, angle, 1.0) builds:
+    a rotation by `angle` degrees (counter-clockwise on screen) about
+    `center` = (x, y), mapping source to destination pixels."""
+    a = np.deg2rad(angle)
+    alpha, beta = np.cos(a), np.sin(a)
+    cx, cy = center
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def warp_affine(src: np.ndarray, mat: np.ndarray, order: int) -> np.ndarray:
+    """cv2.warpAffine(src, mat, (w, h)) with zero fill, in scipy: each
+    destination pixel reads the source at the inverse of `mat`, bilinear
+    (order=1; uint8 rounds to nearest) or nearest (order=0). cv2 quantises
+    its bilinear weights to 1/32 of a pixel, so a uint8 image may differ
+    from cv2's by a few levels where it is steep, and the nearest pick by
+    one pixel where a source coordinate lies at a half-pixel tie."""
+    from scipy import ndimage
+
+    inv = np.linalg.inv(np.vstack([mat, [0.0, 0.0, 1.0]]))[:2]
+    # (row, col) = (y, x): swap both axes of the inverse map
+    m = inv[::-1, 1::-1]
+    off = inv[::-1, 2]
+    planes = src[..., None] if src.ndim == 2 else src
+    out = np.empty(planes.shape, np.float32 if order else planes.dtype)
+    for c in range(planes.shape[-1]):
+        ndimage.affine_transform(
+            planes[..., c].astype(np.float32) if order else planes[..., c],
+            m, off, output=out[..., c], order=order, mode="grid-constant",
+            cval=0.0, prefilter=False)
+    if order and src.dtype == np.uint8:
+        out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return out.reshape(src.shape).astype(src.dtype, copy=False)
+
+
 def aug_rotate(image: np.ndarray, gts: ArrayList, degree: float,
                rng: np.random.Generator) -> Tuple[np.ndarray, ArrayList]:
     """Center rotation, bilinear image / nearest GT, zero fill (the
-    reference's PIL Image.rotate semantics, augmentations.py:32-43) via
-    cv2.warpAffine — ~3x faster at 4K on 1-vCPU loader hosts; output
-    differs from PIL only by sub-LSB resampling rounding at ~2% of edge
-    pixels (random aug, not a parity surface)."""
-    import cv2
-
+    reference's PIL Image.rotate semantics, augmentations.py:32-43), about
+    ((w - 1) / 2, (h - 1) / 2) with the matrix cv2.getRotationMatrix2D
+    builds, as the JAX package's cv2.warpAffine does, but without OpenCV
+    (`warp_affine`). The angle is drawn from `rng` as the JAX package
+    draws it, so the two loaders' sample streams stay aligned."""
     angle = (rng.random() - 0.5) * 2 * degree
     h, w = image.shape[:2]
-    mat = cv2.getRotationMatrix2D(((w - 1) / 2, (h - 1) / 2), angle, 1.0)
-    image = cv2.warpAffine(image, mat, (w, h), flags=cv2.INTER_LINEAR)
-
-    def rot(d):
-        return cv2.warpAffine(d, mat, (w, h), flags=cv2.INTER_NEAREST)
-
+    mat = rotation_matrix(((w - 1) / 2, (h - 1) / 2), angle)
+    image = warp_affine(image, mat, order=1)
     if isinstance(gts, list):
-        gts = [rot(g) for g in gts]
+        gts = [warp_affine(g, mat, order=0) for g in gts]
     else:
-        gts = rot(gts)
+        gts = warp_affine(gts, mat, order=0)
     return image, gts
 
 

@@ -9,7 +9,7 @@ disparity boundary edges for the SEE metric (u4k:168-169).
 
 Outputs are numpy NHWC-style dicts (HWC images, HW1 depths): the loader
 stacks them and the engine moves them to the device. Train mode's rotation
-needs cv2.
+runs in scipy (data/transforms.aug_rotate); nothing here needs OpenCV.
 """
 
 from __future__ import annotations

@@ -1,4 +1,18 @@
-"""Reference checkpoint import (patchfusion_tpu/engine/checkpoint.py:82-142).
+"""Checkpoint IO (patchfusion_tpu/engine/checkpoint.py): the port's own
+training checkpoints and weight files, and the reference's checkpoints.
+
+The port's own format is a `torch.save` of plain dicts of tensors (read
+back with weights_only=True), written to `path + ".tmp"` and then
+os.replace'd, as the JAX package writes its files:
+
+  * `save_checkpoint` (a training checkpoint, fusion-only like the
+    reference's get_save_dict, patchfusion.py:179-187): epoch, step,
+    the trainable parameters, the BatchNorm statistics and the optimizer
+    state (with the schedule's position, `step`), by state_dict names;
+  * `save_params` (weights only: params and, where given, batch_stats).
+
+It reads no flax msgpack file (the JAX package's `.ckpt` and params
+files): those raise, saying so.
 
 The reference ships PatchFusion as three files, or as one HF snapshot
 directory:
@@ -23,17 +37,121 @@ the callers in api.py load on the CPU before moving and casting the net.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+import pickle
+import zipfile
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+FORMAT = "patchfusion_tpu_torch"  # the "format" entry of the port's files
+
+
+def _cpu(tree):
+    """A copy of a nested dict / list of tensors on the CPU, detached."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu(v) for v in tree)
+    return tree
+
+
+def _write(path: str, payload: Dict[str, Any]) -> None:
+    tmp = path + ".tmp"
+    torch.save({"format": FORMAT, **payload}, tmp)
+    os.replace(tmp, path)
+
+
+def _read(path: str) -> Dict[str, Any]:
+    """One of the port's files, on the CPU; anything else raises."""
+    if not zipfile.is_zipfile(path):  # torch.save writes a zip archive
+        raise ValueError(
+            f"{path} is not a checkpoint of patchfusion_tpu_torch (a "
+            "torch.save of plain dicts of tensors); the port reads no flax "
+            "msgpack file of the JAX package")
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(blob, dict) or blob.get("format") != FORMAT:
+        raise ValueError(f"{path} is not a checkpoint of "
+                         "patchfusion_tpu_torch (no format entry)")
+    return blob
+
+
+def save_checkpoint(path: str, state, epoch: int) -> None:
+    """Save a TrainState (engine/training.py): epoch, step, the trainable
+    parameters, the BN statistics and the optimizer state. Fusion-only (the
+    reference's get_save_dict): the frozen branches are not written; they
+    load from their own stage-1/2 checkpoints."""
+    _write(path, {"epoch": int(epoch), "step": int(state.step),
+                  "trainable": _cpu(state.trainable),
+                  "batch_stats": _cpu(state.batch_stats),
+                  "opt_state": _cpu(state.optimizer.state_dict())})
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """A save_checkpoint file as its dict (tensors on the CPU)."""
+    blob = _read(path)
+    if "trainable" not in blob:
+        raise ValueError(f"{path} is a weights file, not a training "
+                         "checkpoint (load it with load_params)")
+    return blob
+
+
+def restore_train_state(state, blob: Dict[str, Any]) -> int:
+    """Load a load_checkpoint dict into a TrainState in place: the trainable
+    weights and BN statistics, the optimizer state and the step. Returns
+    the checkpoint's epoch."""
+    load_fusion_state_dict(state.net, {**blob["trainable"],
+                                       **blob["batch_stats"]})
+    state.optimizer.load_state_dict(blob["opt_state"])
+    state.step = int(blob["step"])
+    return int(blob.get("epoch", 0))
+
+
+def save_params(path: str, params: Dict[str, torch.Tensor],
+                batch_stats: Optional[Dict[str, torch.Tensor]] = None
+                ) -> None:
+    """Weights only (the JAX package's inference-weights export): params
+    and, where given, the BN statistics, by state_dict names."""
+    payload = {"params": _cpu(params)}
+    if batch_stats is not None:
+        payload["batch_stats"] = _cpu(batch_stats)
+    _write(path, payload)
+
+
+def load_params(path: str) -> Dict[str, Any]:
+    """A save_params file as its dict (tensors on the CPU)."""
+    blob = _read(path)
+    if "params" not in blob:
+        raise ValueError(f"{path} is a training checkpoint, not a weights "
+                         "file (read it with load_checkpoint)")
+    return blob
+
+
+def read_weights(path: str) -> Tuple[Dict[str, torch.Tensor],
+                                     Dict[str, torch.Tensor]]:
+    """(params, batch_stats) of either of the port's files: a weights file
+    or a training checkpoint (its trainable part)."""
+    blob = _read(path)
+    if "params" in blob:
+        return blob["params"], blob.get("batch_stats", {})
+    return blob["trainable"], blob["batch_stats"]
+
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A reference `.pth` checkpoint's model_state_dict (or a bare state
-    dict), on the CPU. weights_only=False: the reference's files pickle
-    more than tensors, so only files from a trusted source may be read."""
-    blob = torch.load(path, map_location="cpu", weights_only=False)
+    dict), on the CPU; a weights file of the port's own (save_params, as
+    tools/train_branch.py writes a branch) gives its params and batch
+    statistics. weights_only=False: the reference's files pickle more than
+    tensors, so only files from a trusted source may be read."""
+    try:
+        blob = torch.load(path, map_location="cpu", weights_only=False)
+    except (pickle.UnpicklingError, ValueError, EOFError) as e:
+        raise ValueError(f"{path} is not a torch checkpoint; the port reads "
+                         "no flax msgpack file of the JAX package") from e
+    if blob.get("format") == FORMAT:
+        return {**blob["params"], **blob.get("batch_stats", {})}
     return blob.get("model_state_dict", blob)
 
 

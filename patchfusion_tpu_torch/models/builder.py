@@ -62,9 +62,11 @@ def build_patchfusion(config: Dict[str, Any], dtype=torch.float32,
                       device="cuda") -> Tuple[PatchFusionNet, TileConfig]:
     """config: the reference PatchFusion `model.config` dict. The modules
     are created directly on `device` (their default init runs there) and
-    cast to `dtype`, in eval mode. The default is the card; a caller who
-    wants the CPU passes device="cpu". Raises if a CUDA device is asked for
-    and there is none."""
+    cast to `dtype`, in eval mode (`PatchFusionNet.train_mode` sets the
+    fusion stage's training modes). `train_remat` in the config recomputes
+    the fusion stage in the backward. The default is the card; a caller
+    who wants the CPU passes device="cpu". Raises if a CUDA device is asked
+    for and there is none."""
     device = check_device(device)
     tile_cfg = TileConfig(tuple(config["image_raw_shape"]),
                           tuple(config["patch_split_num"]),
@@ -75,7 +77,8 @@ def build_patchfusion(config: Dict[str, Any], dtype=torch.float32,
             fine=zoe_branch_kwargs(config["fine_branch"]),
             guided_fusion=guided_fusion_kwargs(config["guided_fusion"]),
             min_depth=config["min_depth"], max_depth=config["max_depth"],
-            patch_process_shape=tuple(config["patch_process_shape"]))
+            patch_process_shape=tuple(config["patch_process_shape"]),
+            remat=bool(config.get("train_remat", False)))
     return net.to(device=device, dtype=dtype).eval(), tile_cfg
 
 

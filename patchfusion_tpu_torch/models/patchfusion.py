@@ -6,24 +6,30 @@ guided-fusion U-Net with G2L attention and a metric-bins decoder head. As in
 the JAX package, G2L attention over the whole-image coarse features runs
 once per image (`attend_coarse`) and `coarse_postprocess` ROI-aligns every
 level from the single whole-image copy. The tiled-inference engine lives in
-engine/inference.py.
+engine/inference.py; the fusion stage's training forward is
+`train_forward`, and `train_mode` sets the modes it needs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
-from patchfusion_tpu_torch.models.fusion import GuidedFusion
+from patchfusion_tpu_torch.models.fusion import GuidedFusion, remat_call
 from patchfusion_tpu_torch.models.zoedepth import (N_MIDAS_OUT,
                                                    MetricBinsHead,
                                                    branch_channels,
                                                    head_kwargs,
                                                    make_zoe_branch)
-from patchfusion_tpu_torch.ops.roi_align import roi_align_single
+from patchfusion_tpu_torch.ops.roi_align import (roi_align_batched,
+                                                 roi_align_single)
+
+# the frozen ZoeDepth branches of the fusion stage (reference
+# patchfusion.py:112-115); everything else of the net is trained
+FROZEN_KEYS = ("coarse_branch", "fine_branch")
 
 # the six multi-scale features, low -> high resolution (reference
 # patchfusion.py:198-204)
@@ -86,18 +92,22 @@ class TileConfig:
 class PatchFusionNet(MetricBinsHead):
     """The PatchFusion network (reference patchfusion.py:56-174); the PF
     metric-bins head's submodules sit at the top level, as in the
-    reference checkpoints."""
+    reference checkpoints. remat: recompute the trainable fusion stage in
+    the backward (the U-Net's blocks, G2L and the PF head, as the JAX
+    package's nn.remat does); inference and the parameters are the same."""
 
     def __init__(self, coarse: Dict[str, Any], fine: Dict[str, Any],
                  guided_fusion: Dict[str, Any], min_depth: float = 1e-3,
                  max_depth: float = 80.0,
-                 patch_process_shape: Tuple[int, int] = (392, 518)):
-        gf = GuidedFusion(**guided_fusion)
+                 patch_process_shape: Tuple[int, int] = (392, 518),
+                 remat: bool = False):
+        gf = GuidedFusion(**guided_fusion, remat=remat)
         inv = list(guided_fusion.get("in_channels",
                                      (32, 256, 256, 256, 256, 256)))[::-1]
         super().__init__(inv[0], inv[1:5],
                          **head_kwargs(coarse, min_depth, max_depth))
         self.patch_process_shape = tuple(patch_process_shape)
+        self.remat = remat
         self.coarse_branch = make_zoe_branch(coarse, min_depth, max_depth)
         self.fine_branch = make_zoe_branch(fine, min_depth, max_depth)
         c = branch_channels(fine)
@@ -139,28 +149,31 @@ class PatchFusionNet(MetricBinsHead):
 
     # -- roi cropping --------------------------------------------------------
 
-    def _roi(self, feat: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
-        """ROI-align (1, C, h, w) to (N, C, h, w). REFERENCE QUIRK: one
-        spatial_scale, from the height, for both axes
+    def _roi(self, feat: torch.Tensor, boxes: torch.Tensor,
+             batched: bool = False) -> torch.Tensor:
+        """ROI-align (1, C, h, w) to (N, C, h, w), or with batched=True box
+        i from map i of (N, C, h, w) (the training path). REFERENCE QUIRK:
+        one spatial_scale, from the height, for both axes
         (patchfusion.py:232-251)."""
         h, w = feat.shape[-2:]
         scale = h / self.patch_process_shape[0]
-        out = roi_align_single(feat.permute(0, 2, 3, 1), boxes, h, w, scale,
-                               sampling_ratio=1)
+        fn = roi_align_batched if batched else roi_align_single
+        out = fn(feat.permute(0, 2, 3, 1), boxes, h, w, scale,
+                 sampling_ratio=1)
         return out.permute(0, 3, 1, 2)
 
     def coarse_postprocess(self, coarse_depth: torch.Tensor,
                            coarse_feats: List[torch.Tensor],
                            g2l_feats: List[torch.Tensor],
-                           boxes_process: torch.Tensor
+                           boxes_process: torch.Tensor, batched: bool = False
                            ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                       List[torch.Tensor]]:
         """ROI-align the coarse depth and the raw and attended features to
-        the tile boxes, reading the single whole-image copy
-        (patchfusion.py:227-257)."""
-        return (self._roi(coarse_depth, boxes_process),
-                [self._roi(f, boxes_process) for f in coarse_feats],
-                [self._roi(f, boxes_process) for f in g2l_feats])
+        the tile boxes, reading the single whole-image copy, or with
+        batched=True each sample's own image (patchfusion.py:227-257)."""
+        return (self._roi(coarse_depth, boxes_process, batched),
+                [self._roi(f, boxes_process, batched) for f in coarse_feats],
+                [self._roi(f, boxes_process, batched) for f in g2l_feats])
 
     # -- fusion --------------------------------------------------------------
 
@@ -181,8 +194,8 @@ class PatchFusionNet(MetricBinsHead):
         last = outputs[-1]
         # the reference's rel_cond is vestigially zero (patchfusion.py:300)
         rel_cond = torch.zeros_like(last[:, :1])
-        return self.head_forward(outputs[0], outputs[1:5], last,
-                                 rel_cond)["metric_depth"]
+        return remat_call(self.remat, self.head_forward, outputs[0],
+                          outputs[1:5], last, rel_cond)["metric_depth"]
 
     def infer_tiles(self, crops: torch.Tensor,
                     coarse_feat_rois: List[torch.Tensor],
@@ -192,3 +205,40 @@ class PatchFusionNet(MetricBinsHead):
         fine_depth, fine_feats = self.fine_forward(crops)
         return self.fusion_forward(fine_depth, crops, coarse_feat_rois,
                                    fine_feats, g2l_rois, coarse_depth_roi)
+
+    # -- training ------------------------------------------------------------
+
+    def train_mode(self) -> "PatchFusionNet":
+        """The fusion stage's modes (reference patchfusion.py:112-115): the
+        two branches frozen, in eval mode and without gradients; the fusion
+        convs, the guided-fusion U-Net (with G2L) and the PF head trained,
+        in train mode (their BatchNorms on batch statistics)."""
+        self.train()
+        for name in FROZEN_KEYS:
+            getattr(self, name).eval().requires_grad_(False)
+        return self
+
+    def train_forward(self, image_lr: torch.Tensor,
+                      crops_image_hr: torch.Tensor, bboxs: torch.Tensor,
+                      tile_cfg: Optional[TileConfig] = None) -> torch.Tensor:
+        """Training forward (reference patchfusion.py:372-393): one random
+        crop per sample. image_lr (B, 3, h, w) and crops_image_hr
+        (B, 3, h, w) NCHW; bboxs (B, 4) raw-coordinate [x1, y1, x2, y2],
+        scaled to process coordinates by tile_cfg's raw shape or the
+        reference's 3840x2160. The branches run without grad; G2L, the ROI
+        crops and the fusion stage carry it. Returns the per-crop depth
+        (B, 1, h, w). The modes are the caller's (train_mode)."""
+        raw_h, raw_w = (2160, 3840) if tile_cfg is None \
+            else tile_cfg.image_raw_shape
+        fx = self.patch_process_shape[1] / raw_w
+        fy = self.patch_process_shape[0] / raw_h
+        boxes_p = bboxs * torch.tensor([fx, fy, fx, fy], dtype=bboxs.dtype,
+                                       device=bboxs.device)
+        with torch.no_grad():
+            coarse_depth, coarse_feats = self.coarse_forward(image_lr)
+            fine_depth, fine_feats = self.fine_forward(crops_image_hr)
+        g2l_feats = self.attend_coarse(coarse_feats)
+        depth_roi, feat_rois, g2l_rois = self.coarse_postprocess(
+            coarse_depth, coarse_feats, g2l_feats, boxes_p, batched=True)
+        return self.fusion_forward(fine_depth, crops_image_hr, feat_rois,
+                                   fine_feats, g2l_rois, depth_roi)

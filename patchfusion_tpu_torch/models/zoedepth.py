@@ -328,11 +328,13 @@ class MetricBinsHead(nn.Module):
             # the bf16 path's fused formulation (zoedepth.py:457-479): the
             # clb_pt and logbinomial_depth kernels on the card, their plain
             # twins on the CPU; both read the low-resolution condition and
-            # centers, so no full-resolution K-channel tensor is formed
-            p, tn = clb.params_pt_fused(last_cat, b_embedding)
-            depth = fused_head.logbinomial_depth(
-                p, tn, b_centers.permute(0, 2, 3, 1), self.min_temp,
-                self.max_temp)[:, None]
+            # centers, so no full-resolution K-channel tensor is formed.
+            # Under autocast (--amp) the twins keep their f32 arithmetic.
+            with torch.autocast(last.device.type, enabled=False):
+                p, tn = clb.params_pt_fused(last_cat, b_embedding)
+                depth = fused_head.logbinomial_depth(
+                    p, tn, b_centers.permute(0, 2, 3, 1), self.min_temp,
+                    self.max_temp)[:, None]
             return {"metric_depth": depth, "bin_centers": b_centers,
                     "b_embedding": b_embedding, "probs": None}
 

@@ -14,6 +14,14 @@ Each kernel has three pieces here:
   * a launch count in `LAUNCHES`, raised by one per kernel launch and
     nowhere else.
 
+Each wrapper is differentiable, as the JAX package's custom VJPs make its
+kernels (pallas_head.py:137-164, :296-321, :507-528): when grad mode is on
+and an input requires grad, the call goes through `Recompute`, whose
+forward is the wrapper's own (the kernel on the card) and whose backward
+recomputes the plain twin under autograd and returns its input gradients.
+Otherwise the wrapper runs its forward directly, as in inference. No
+backward kernel exists, in either package.
+
 The kernels live in `patchfusion_tpu_torch/csrc/` (built and loaded by
 `ops/cuda_lib.py`). They read their 4-D inputs through strides, so the
 model hands them permuted views of its NCHW tensors instead of
@@ -104,6 +112,50 @@ def logbinomial_depth_plain(p: torch.Tensor, t: torch.Tensor,
     return torch.sum(probs * cent, dim=-1)
 
 
+# ---------------------------------------------------------------------------
+# gradients: the kernel forward, the twin's recomputed backward
+# ---------------------------------------------------------------------------
+
+class Recompute(torch.autograd.Function):
+    """forward(fwd, plain, kwargs, *inputs) = fwd(*inputs, **kwargs); the
+    backward recomputes plain(*inputs, **kwargs) under autograd, with
+    autocast off (the twins compute in f32 inside), and returns
+    torch.autograd.grad of it for every input that requires grad, each in
+    its input's dtype and shape (a permuted NCHW view gets a gradient of
+    the view's shape). `fwd` is a wrapper's kernel route; a test may hand
+    it the twin, so that the backward runs on the CPU too. The inputs are
+    saved for the backward; nothing else is."""
+
+    @staticmethod
+    def forward(ctx, fwd, plain, kwargs, *inputs):
+        ctx.plain, ctx.kwargs = plain, kwargs
+        ctx.save_for_backward(*inputs)
+        with torch.autocast(inputs[0].device.type, enabled=False):
+            return fwd(*inputs, **kwargs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[3:]
+        with torch.enable_grad(), torch.autocast(saved[0].device.type,
+                                                 enabled=False):
+            inputs = [x.detach().requires_grad_(n)
+                      for x, n in zip(saved, needs)]
+            outs = ctx.plain(*inputs, **ctx.kwargs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            wrt = [x for x, n in zip(inputs, needs) if n]
+            got = iter(torch.autograd.grad(outs, wrt, grads,
+                                           allow_unused=True))
+        return (None, None, None,
+                *(next(got) if n else None for n in needs))
+
+
+def _differentiable(*inputs: torch.Tensor) -> bool:
+    """Whether a call must record a gradient: grad mode on and an input
+    that requires grad."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
+
+
 def logbinomial_depth(p: torch.Tensor, t: torch.Tensor,
                       centers: torch.Tensor, min_temp: float = 0.0212,
                       max_temp: float = 50.0) -> torch.Tensor:
@@ -111,8 +163,21 @@ def logbinomial_depth(p: torch.Tensor, t: torch.Tensor,
 
     p, t: (B, OH, OW) float32 (t before the min/max temperature scaling);
     centers: (B, IH, IW, K) bin centers, float32 or bfloat16, channels-last
-    or a permuted NCHW view. Returns (B, OH, OW) float32.
+    or a permuted NCHW view. Returns (B, OH, OW) float32. Differentiable in
+    p, t and centers (see Recompute).
     """
+    kw = dict(min_temp=min_temp, max_temp=max_temp)
+    if _differentiable(p, t, centers):
+        return Recompute.apply(_logbinomial_depth, logbinomial_depth_plain,
+                               kw, p, t, centers)
+    return _logbinomial_depth(p, t, centers, **kw)
+
+
+def _logbinomial_depth(p: torch.Tensor, t: torch.Tensor,
+                       centers: torch.Tensor, min_temp: float,
+                       max_temp: float) -> torch.Tensor:
+    """logbinomial_depth's forward: the twin for CPU tensors, else the
+    kernel."""
     if on_cpu(p, t, centers):
         return logbinomial_depth_plain(p, t, centers, min_temp, max_temp)
     if p.dim() != 3 or t.shape != p.shape:
@@ -185,8 +250,20 @@ def clb_pt(last_cat: torch.Tensor, cond_lo: torch.Tensor, w1: torch.Tensor,
     at the low (attractor) resolution; both float32 or both bfloat16,
     channels-last or permuted NCHW views. w1/b1: mlp_0 as (Cin+Cc, 80) and
     (80,); w2/b2: mlp_2 as (80, 4) and (4,). Returns p and t_norm, each
-    (B, OH, OW) float32, t before the temperature scaling.
+    (B, OH, OW) float32, t before the temperature scaling. Differentiable
+    in every tensor argument (see Recompute).
     """
+    args = (last_cat, cond_lo, w1, b1, w2, b2)
+    if _differentiable(*args):
+        return Recompute.apply(_clb_pt, clb_pt_plain, dict(p_eps=p_eps),
+                               *args)
+    return _clb_pt(*args, p_eps=p_eps)
+
+
+def _clb_pt(last_cat: torch.Tensor, cond_lo: torch.Tensor, w1: torch.Tensor,
+            b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+            p_eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """clb_pt's forward: the twin for CPU tensors, else the kernel."""
     if on_cpu(last_cat, cond_lo, w1, b1, w2, b2):
         return clb_pt_plain(last_cat, cond_lo, w1, b1, w2, b2, p_eps)
     weights = _check_clb(last_cat, cond_lo, w1, b1, w2, b2)
@@ -292,8 +369,24 @@ def clb_logbinomial_depth(last_cat: torch.Tensor, cond_lo: torch.Tensor,
     last_cat: (B, OH, OW, Cin); cond_lo: (B, IH, IW, Cc) and centers
     (B, IH, IW, K) at the same low resolution; all three float32 or all
     bfloat16, channels-last or permuted NCHW views. Weights as for clb_pt.
-    Returns (B, OH, OW) float32.
+    Returns (B, OH, OW) float32. Differentiable in every tensor argument
+    (see Recompute).
     """
+    args = (last_cat, cond_lo, centers, w1, b1, w2, b2)
+    kw = dict(min_temp=min_temp, max_temp=max_temp, p_eps=p_eps)
+    if _differentiable(*args):
+        return Recompute.apply(_clb_logbinomial_depth,
+                               clb_logbinomial_depth_plain, kw, *args)
+    return _clb_logbinomial_depth(*args, **kw)
+
+
+def _clb_logbinomial_depth(last_cat: torch.Tensor, cond_lo: torch.Tensor,
+                           centers: torch.Tensor, w1: torch.Tensor,
+                           b1: torch.Tensor, w2: torch.Tensor,
+                           b2: torch.Tensor, min_temp: float,
+                           max_temp: float, p_eps: float) -> torch.Tensor:
+    """clb_logbinomial_depth's forward: the twin for CPU tensors, else the
+    kernel."""
     if on_cpu(last_cat, cond_lo, centers, w1, b1, w2, b2):
         return clb_logbinomial_depth_plain(last_cat, cond_lo, centers, w1,
                                            b1, w2, b2, min_temp, max_temp,

@@ -24,6 +24,13 @@ bfloat16, and the result is (B, N, H, Dh) bfloat16. For CPU tensors it
 returns the plain twin `vit_attention_plain`; for CUDA tensors it launches
 the kernel on the current stream, or raises. It never falls back from CUDA
 to the twin. `LAUNCHES["vit_attention"]` counts the kernel's launches.
+
+The kernel has no backward, and neither has the TPU kernel (no custom VJP
+in pallas_attention.py). So a call that would have to carry a gradient
+(grad mode on and an input that requires grad) raises, on either device,
+naming PF_ATTN_IMPL: training a DINOv2 branch runs on the default einsum
+path. The frozen branches of fusion training run without grad and launch
+the kernel as inference does.
 """
 
 from __future__ import annotations
@@ -113,6 +120,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             round_logits: bool, round_diff: bool) -> torch.Tensor:
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "the attention kernel (PF_ATTN_IMPL=pallas) has no backward: "
+            "a gradient through it was asked for. Train with PF_ATTN_IMPL "
+            "unset or 'einsum', or run the attention under torch.no_grad()")
     if on_cpu(q, k, v):
         return vit_attention_plain(q, k, v, round_logits, round_diff)
     _check(q, k, v)

@@ -5,11 +5,14 @@ tools/test.py):
         [--cai-mode m1|m2|rN] [--test-type normal|test_in|test_out|general]
 
 --ckp-path takes a local snapshot directory (config.json +
-pytorch_model.bin or model.safetensors) or the reference's comma-separated
-'coarse.pth,fine.pth[,fusion.pth]'; for a BaselinePretrain config, one
-branch '.pth'. Without it the weights are random (seeded). The JAX tool's
-native msgpack '.ckpt' is not read here: the port's own checkpoint format
-comes with its training slice.
+pytorch_model.bin or model.safetensors), the reference's comma-separated
+'coarse.pth,fine.pth[,fusion.pth]', or one of the port's own files
+(engine/checkpoint.py: a training '.ckpt' or a weights file), which is
+fusion-only and merges over the branches (seeded, or the config's
+`pretrain_model` files where `load_branch` is set), as tools/test.py does;
+for a BaselinePretrain config, one branch '.pth' or a weights file of
+tools/train_branch.py. Without it the weights are random (seeded). The JAX
+package's msgpack files are not read: they raise.
 
 Flags as tools/test.py has them, less --mesh and --chunk-policy (they shape
 the JAX package's compiled programs and device mesh, which the port does not
@@ -56,18 +59,23 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def load_patchfusion(config, ckp: Optional[str], device,
                      dtype: torch.dtype):
     """PatchFusion with the weights of --ckp-path: a local snapshot
-    directory (its own config.json), or the .pth triple over `config`, or,
-    without one, seeded random weights."""
+    directory (its own config.json), the .pth triple over `config`, or one
+    of the port's fusion-only files merged over the branches; without one,
+    seeded random weights."""
     from patchfusion_tpu_torch.api import PatchFusion
 
-    if ckp and ckp.endswith(".ckpt"):
-        raise NotImplementedError(
-            f"{ckp}: the JAX package's msgpack checkpoint; the port's own "
-            "checkpoint format comes with its training slice. Pass a "
-            "snapshot directory or the reference's .pth files")
     if ckp and os.path.isdir(ckp):
         return PatchFusion.from_pretrained(ckp, device=device, dtype=dtype)
     ckpts = None
+    if ckp and "," not in ckp:
+        # the port's own fusion-only file, over the branches (tools/test.py
+        # of the JAX package: load_checkpoint's trainable over from_config)
+        if config.get("load_branch") and config.get("pretrain_model"):
+            ckpts = (*config["pretrain_model"][:2], None)
+        model = PatchFusion.from_config(config, device=device, ckpts=ckpts)
+        model.load_dict(ckp)
+        model.net.to(dtype)
+        return model
     if ckp:
         paths = ckp.split(",")
         if len(paths) not in (2, 3):
@@ -100,9 +108,6 @@ def build_engine(cfg, args: argparse.Namespace):
         kw = dict(target=target, image_raw_shape=raw_shape,
                   patch_split_num=split, patch_process_shape=tuple(pps),
                   device=device, dtype=dtype)
-        if ckp and not ckp.endswith(".pth"):
-            raise ValueError(f"--ckp-path {ckp!r}: a BaselinePretrain "
-                             "config takes one branch .pth")
         model = (BaselinePretrain.from_torch(*args_bp, ckp, **kw) if ckp
                  else BaselinePretrain(*args_bp, **kw))
         return model if target == "coarse" else model.engine(

@@ -214,3 +214,24 @@ def test_engine_m1_pallas_matches_jax(tiny, monkeypatch):
                                                 process_num=2)
     assert got.shape == want.shape
     assert rel_err(got, want) <= BF16_TOL
+
+
+def test_kernel_wrappers_raise_under_grad(monkeypatch):
+    """The attention kernel has no backward (nor has the TPU kernel): a call
+    that would carry a gradient raises, naming PF_ATTN_IMPL, on the CPU as
+    on the card; without grad mode, or with no input requiring grad, it runs
+    (the frozen branches of fusion training)."""
+    qkv = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, 13, 3, 2, 32)).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].clone().requires_grad_() for i in range(3))
+    monkeypatch.setenv("PF_ATTN_IMPL", "pallas")
+    for fn in (va.vit_attention, va.vit_attention_blocked,
+               va.vit_attention_mxsum, dinov2.fused_attention):
+        with pytest.raises(RuntimeError, match="PF_ATTN_IMPL"):
+            fn(q, k, v)
+        with torch.no_grad():
+            assert fn(q, k, v).shape == q.shape
+    monkeypatch.setenv("PF_ATTN_IMPL", "einsum")
+    out = dinov2.fused_attention(q, k, v)
+    out.float().sum().backward()
+    assert q.grad is not None and q.grad.dtype == torch.bfloat16

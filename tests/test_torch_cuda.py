@@ -402,3 +402,98 @@ def test_fusionless_engine_runs_the_head_kernels(cuda):
         assert ran == (heads, heads), (mode, ran)
         rel = np.abs(got - ref).max() / np.abs(ref).max()
         assert rel <= 3e-2, (mode, rel)
+
+
+def _grad_inputs(name, dtype, dev):
+    """Seeded inputs of one head wrapper on the card at the ragged test
+    shape, the 4-D maps in `dtype` as permuted views of NCHW leaves (the
+    model's layout), p, t and the weights f32; returns (leaves, args)."""
+    rng = np.random.default_rng(11)
+
+    def nchw_view(shape):
+        leaf = torch.from_numpy(np.ascontiguousarray(np.moveaxis(
+            rng.standard_normal(shape, dtype=np.float32), -1, 1))).to(
+            dev, dtype).requires_grad_()
+        return leaf, leaf.permute(0, 2, 3, 1)
+
+    def flat(a):
+        leaf = torch.from_numpy(a).to(dev).requires_grad_()
+        return leaf, leaf
+
+    pairs = []
+    if name == "logbinomial_depth":
+        pairs += [flat(rng.random((B, OH, OW), dtype=np.float32) * 0.98
+                       + 0.01),
+                  flat(rng.random((B, OH, OW), dtype=np.float32))]
+        leaf, view = nchw_view((B, IH, IW, K))
+        with torch.no_grad():  # positive centers
+            leaf.abs_().mul_(30).add_(1)
+        pairs.append((leaf, view))
+        return pairs
+    pairs += [nchw_view((B, OH, OW, CIN)), nchw_view((B, IH, IW, CC))]
+    if name == "clb_logbinomial_depth":
+        leaf, view = nchw_view((B, IH, IW, K))
+        with torch.no_grad():
+            leaf.abs_().mul_(30).add_(1)
+        pairs.append((leaf, view))
+    pairs += [flat((rng.standard_normal(s) * 0.1).astype(np.float32))
+              for s in ((CIN + CC, HID), (HID,), (HID, 4), (4,))]
+    return pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["clb_pt", "logbinomial_depth",
+                                  "clb_logbinomial_depth"])
+def test_head_gradients_match_the_twins(cuda, name, dtype):
+    """Each head wrapper on the card with inputs that require grad: the
+    forward is its kernel (one launch, the same output as the kernel
+    without grad), and the gradients of every input (the recomputed twin's)
+    agree with plain autograd through the twin on the same inputs, each in
+    its input's dtype and shape: within 1e-5 of each gradient's max in f32
+    (the same arithmetic; the bilinear resizes' backward sums with atomics
+    in any order), within 2^-7 of max for a bf16 input, whose gradient the
+    twin rounds to bf16 last (a sum that differs in its last f32 bits may
+    round to the neighbouring bf16 value)."""
+    wrapper = getattr(fused_head, name)
+    plain = getattr(fused_head, name + "_plain")
+    got_pairs = _grad_inputs(name, dtype, cuda)
+    want_pairs = _grad_inputs(name, dtype, cuda)
+    with torch.no_grad():
+        ref_out = wrapper(*(v for _, v in got_pairs))
+    before = fused_head.LAUNCHES[name]
+    out = wrapper(*(v for _, v in got_pairs))
+    assert fused_head.LAUNCHES[name] == before + 1
+    out = out if isinstance(out, tuple) else (out,)
+    ref_out = ref_out if isinstance(ref_out, tuple) else (ref_out,)
+    for o, r in zip(out, ref_out):
+        assert torch.equal(o, r)
+    want = plain(*(v for _, v in want_pairs))
+    want = want if isinstance(want, tuple) else (want,)
+    cot = [torch.randn(o.shape, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(i))
+           for i, o in enumerate(out)]
+    torch.autograd.backward(out, cot)
+    torch.autograd.backward(want, cot)
+    torch.cuda.synchronize()
+    assert fused_head.LAUNCHES[name] == before + 1  # no kernel in backward
+    for (g, _), (w, _) in zip(got_pairs, want_pairs):
+        assert g.grad.shape == g.shape and g.grad.dtype == g.dtype
+        err = (g.grad.float() - w.grad.float()).abs().max()
+        tol = 1e-5 if g.dtype == torch.float32 else 2 ** -7
+        assert err <= tol * w.grad.float().abs().max(), name
+
+
+@pytest.mark.cuda
+def test_attention_kernel_raises_under_grad(cuda):
+    """No backward for the attention kernel: a call that would carry a
+    gradient raises and launches nothing; under no_grad it launches."""
+    qkv = torch.randn((1, 37, 3, 2, 64), device=cuda, dtype=torch.bfloat16)
+    q, k, v = (qkv[:, :, i].clone().requires_grad_() for i in range(3))
+    before = vit_attention.LAUNCHES["vit_attention"]
+    with pytest.raises(RuntimeError, match="PF_ATTN_IMPL"):
+        vit_attention.vit_attention(q, k, v)
+    assert vit_attention.LAUNCHES["vit_attention"] == before
+    with torch.no_grad():
+        vit_attention.vit_attention(q, k, v)
+    assert vit_attention.LAUNCHES["vit_attention"] == before + 1

@@ -212,10 +212,16 @@ def test_test_cli_returns_finite_metrics(split, models, tmp_path):
 
 
 def test_test_cli_rejects_the_jax_checkpoint(models, tmp_path):
+    """The port reads its own `.ckpt` (tests/test_torch_trainer.py); the
+    JAX package's msgpack checkpoint raises, saying so."""
+    from patchfusion_tpu.engine.checkpoint import save_params as jax_save
+
     cfg_file = _tiny_config_file(tmp_path / "tiny.py", models)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    ckpt = tmp_path / "checkpoint_24.ckpt"
+    jax_save(str(ckpt), models[1][2]["params"]["head"])
+    with pytest.raises(ValueError, match="no flax msgpack"):
         test_cli.main([cfg_file, "--device", "cpu",
-                       "--ckp-path", "checkpoint_24.ckpt"])
+                       "--ckp-path", str(ckpt)])
 
 
 def test_infer_cli_writes_both_pngs(models, tmp_path):

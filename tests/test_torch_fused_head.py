@@ -193,3 +193,133 @@ def test_c0_table_matches_jax_and_is_made_once(k):
     np.testing.assert_array_equal(table.numpy(),
                                   pallas_head._log_binom_coeffs(k))
     assert fused_head._c0_table(k, torch.device("cpu")) is table
+
+
+# -- gradients: the recompute backward against the JAX custom VJPs ---------
+
+def _jax_vjp(fn, args, cotangent):
+    """The JAX function's VJP at args for the numpy cotangent(s)."""
+    import jax
+    out, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in args))
+    return out, [np.asarray(g) for g in vjp(cotangent)]
+
+
+# (port wrapper, JAX function, input builder, differentiable argument count)
+GRAD_CASES = {
+    "logbinomial_depth": (
+        fused_head.logbinomial_depth, fused_head.logbinomial_depth_plain,
+        lambda *a: pallas_head.logbinomial_depth(*a, block_rows=8),
+        _depth_inputs),
+    "clb_pt": (
+        fused_head.clb_pt, fused_head.clb_pt_plain,
+        lambda *a: pallas_head.clb_pt(*a, block_rows=8), _clb_inputs),
+    "clb_logbinomial_depth": (
+        fused_head.clb_logbinomial_depth,
+        fused_head.clb_logbinomial_depth_plain,
+        lambda *a: pallas_head.clb_logbinomial_depth(*a, block_rows=8),
+        _clb_depth_inputs),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_recompute_backward_matches_jax_custom_vjp(name, monkeypatch):
+    """Each wrapper on CPU tensors that require grad goes through
+    Recompute (forward: the twin, as the kernel on the card; backward: the
+    twin recomputed under autograd). Its gradients for every input against
+    the JAX function's custom VJP (the Pallas kernel's forward in
+    interpret mode, the *_reference VJP backward) for the same seeded
+    cotangent: within 1e-4 of each gradient's max (both f32; the two
+    backward graphs differ by float reassociation, measured <= 1.7e-5)."""
+    wrapper, _, jax_fn, inputs = GRAD_CASES[name]
+    args = inputs(SHAPES["main"], seed=3)
+    _interpret(monkeypatch)
+    rng = np.random.default_rng(9)
+    out_shape = args[0].shape[:3]
+    n_out = 2 if name == "clb_pt" else 1
+    cot = [rng.standard_normal(out_shape).astype(np.float32)
+           for _ in range(n_out)]
+    _, want = _jax_vjp(jax_fn, args,
+                       tuple(jnp.asarray(c) for c in cot) if n_out == 2
+                       else jnp.asarray(cot[0]))
+    calls = []
+    monkeypatch.setattr(fused_head.Recompute, "backward",
+                        _counting(fused_head.Recompute.backward, calls))
+    xs = [x.requires_grad_() for x in _t(*args)]
+    out = wrapper(*xs)
+    out = out if isinstance(out, tuple) else (out,)
+    torch.autograd.backward(out, [torch.from_numpy(c) for c in cot])
+    assert calls == [1]
+    assert len(want) == len(xs)
+    for x, w in zip(xs, want):
+        assert x.grad.shape == x.shape and x.grad.dtype == x.dtype
+        assert rel_err(x.grad.numpy(), w) <= 1e-4
+
+
+def _counting(fn, calls):
+    def wrapped(*a, **k):
+        calls.append(1)
+        return fn(*a, **k)
+    return staticmethod(wrapped)
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_recompute_takes_the_forward_it_is_given(name):
+    """Recompute runs the forward it is handed (the kernel route on the
+    card; here a spy around the twin) exactly once, and recomputes the
+    plain twin in the backward, whose gradients equal plain autograd's
+    through the twin. Views of NCHW tensors in bf16, as the model passes
+    them, get gradients of the view's shape in bf16."""
+    _, plain, _, inputs = GRAD_CASES[name]
+    args = inputs(SHAPES["ragged"], seed=5)
+    ran = []
+
+    def spy(*a, **k):
+        ran.append(1)
+        return plain(*a, **k)
+
+    def leaves():
+        out = []
+        for a in _t(*args):
+            if a.dim() == 4:
+                nchw_t = a.permute(0, 3, 1, 2).contiguous().to(
+                    torch.bfloat16).requires_grad_()
+                out.append((nchw_t, nchw_t.permute(0, 2, 3, 1)))
+            else:
+                a.requires_grad_()
+                out.append((a, a))
+        return out
+
+    kw = {} if name == "clb_pt" else {"min_temp": 0.0212, "max_temp": 50.0}
+    if name != "logbinomial_depth":
+        kw["p_eps"] = 1e-4
+    got_leaves = leaves()
+    out = fused_head.Recompute.apply(spy, plain, kw,
+                                     *(v for _, v in got_leaves))
+    assert ran == [1]
+    want_leaves = leaves()
+    ref = plain(*(v for _, v in want_leaves), **kw)
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)
+    sum(o.sum() for o in out).backward()
+    sum(r.sum() for r in ref).backward()
+    assert ran == [1]
+    for (g, _), (w, _) in zip(got_leaves, want_leaves):
+        assert g.grad.shape == g.shape and g.grad.dtype == g.dtype
+        assert torch.equal(g.grad, w.grad)
+
+
+def test_no_grad_calls_skip_the_function(monkeypatch):
+    """Without grad mode, or with no input that requires grad, the wrappers
+    run their forward directly: Recompute is not entered (so inference
+    launches each kernel as before, counts unchanged)."""
+    def refuse(*a, **k):
+        raise AssertionError("Recompute entered")
+
+    monkeypatch.setattr(fused_head.Recompute, "apply", refuse)
+    for name, (wrapper, _, _, inputs) in GRAD_CASES.items():
+        xs = _t(*inputs(SHAPES["main"]))
+        wrapper(*xs)
+        with torch.no_grad():
+            wrapper(*(x.requires_grad_() for x in xs))

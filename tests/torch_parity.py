@@ -72,3 +72,31 @@ def rel_err(got, ref) -> float:
     ref = np.asarray(ref, np.float32)
     assert got.shape == ref.shape, (got.shape, ref.shape)
     return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def train_batch(seed: int = 0, n: int = 4):
+    """A seeded fusion-stage train batch at the tiny sizes, NHWC numpy:
+    42x56 crops whose boxes sit in the 3840x2160 frame the JAX step scales
+    by, with some invalid (0) depths for the loss's mask."""
+    rng = np.random.default_rng(seed)
+    depth = rng.random((n, 42, 56, 1), dtype=np.float32) * 40 + 1
+    depth[0, :5] = 0.0
+    boxes = np.array([[0, 0, 960, 540], [960, 540, 1920, 1080],
+                      [2880, 0, 3840, 540], [1920, 1620, 2880, 2160]],
+                     np.float32)[:n]
+    return {"image_lr": rng.random((n, 42, 56, 3), dtype=np.float32),
+            "crops_image_hr": rng.random((n, 42, 56, 3), dtype=np.float32),
+            "crop_depths": depth, "bboxs": boxes}
+
+
+def by_port_name(trainable_tree, var, cfg, batch_stats=None):
+    """A JAX tree shaped like the trainable params (gradients, parameters)
+    -> the port's state_dict names, through the weight converter (linear,
+    so it carries gradients as it carries weights); BN statistics from
+    `batch_stats` (default the variables')."""
+    full = {**trainable_tree, "coarse_branch": var["params"]["coarse_branch"],
+            "fine_branch": var["params"]["fine_branch"]}
+    return state_dict_from_flax(
+        jax.device_get(full), jax.device_get(
+            batch_stats if batch_stats is not None else var["batch_stats"]),
+        cfg)
