@@ -21,7 +21,8 @@
    rounding's twin than to the other two on inputs where the roundings
    part. Each function is timed four ways (_timings): ms, one call between
    CUDA events (host work included); ms_batched, per call over runs of 20
-   back-to-back calls; device_ms, the profiler's kernel time per call;
+   back-to-back calls; device_ms, the profiler's kernel time per call
+   (device_events: the device events it recorded over its 20 calls);
    host_us, the host's time to issue one call. Each row carries its bound
    and bound_share (bound_ms / ms).
 4. Builds DA-vitl PatchFusion at full width from
@@ -52,7 +53,9 @@
    head kernels once for coarse and once per chunk of 4 tiles for fine m1.
    Prints the snapshot's write and load times and the phase's peak memory.
 8. Runs the tiny config in bf16 on the card (with the kernels, einsum and
-   pallas attention) against the same weights in float32 on the CPU.
+   pallas attention) against the same weights in float32 on the CPU, and
+   the toy zoedepth config (BEiT_tiny, 64x96 tiles) likewise, m1 with 5 + 5
+   head launches.
 9. The training path (phase `train`): (a) the three head wrappers with
    inputs that require grad at B = 4 (bf16 maps as NCHW views, f32
    weights): one kernel launch forward and none backward, the recomputed
@@ -70,10 +73,34 @@
    and losses; (e) one step with train_remat off and on: the same loss,
    each one's peak; (f) 2 steps of tools.train_branch for vitl coarse
    (f32).
-10. Prints one JSON line with the kernels' launches (the main path's, and
-   for the head kernels the eval phase's and the training steps'),
-   errors, times (the head kernels' recompute backward too) and bounds,
-   then {"ok": true, "device": {...}} as the last line.
+10. The BEiT ZoeDepth family (phase `beit`,
+   configs/patchfusion_zoedepth): (a) the head kernels against their twins
+   at the BEiT head's shapes (B = 1 and 4, 384x512 from 192x256, K = 64,
+   f32 and bf16, channels-last and NCHW views, the tolerances of step 3),
+   timed as there, each row naming its route (logbinomial_depth's tiled
+   kernel, checked; clb_pt's bf16 tensor-core kernel with its tile's
+   shared memory), run with step 3 (the profiler, late in a run, has lost
+   launches of the port's kernels; a row's profile must hold every
+   launch); (b) one BEiT-L block (B = 4, 769 tokens, width 1024,
+   16 heads, LayerScale gammas U(0.5, 1.5)) in bf16 against f32 on the
+   card, within 3e-2 of max; (c) zoedepth_patchfusion_u4k.py at full
+   width in bf16 with seeded weights (load_branch=False,
+   pretrain_model=None): four m1 requests (the first warms up) and one m2
+   on seeded 2160x3840 images, each with 9 / 27 launches of each head
+   kernel and none of the per-pixel kernel, then one m1 with
+   PF_ATTN_IMPL=pallas (no attention launch, the same depth); warm
+   latency and peak memory; (d) a synthetic reference coarse-branch .pth
+   in the published layout (24x24 tables, 577 x 577 index buffers, numpy
+   values) loaded through BaselinePretrain.from_torch on the coarse
+   pretrain config: the tables resampled to 24x32, one request, the load
+   time; (e) two fusion-stage steps at batch 4 with --amp on one fixed
+   batch: finite losses, 3 + 3 head launches a step, the step time on the
+   device's clock and the peak.
+11. Prints one JSON line with the kernels' launches (the main path's, and
+   for the head kernels the eval phase's, the training steps' and the
+   BEiT path's with their BEiT-shape rows), errors, times (the head
+   kernels' recompute backward too) and bounds, then
+   {"ok": true, "device": {...}} as the last line.
 
 Any failed check raises, so the script exits non-zero without the last line.
 It needs one CUDA card and nothing but this repository.
@@ -102,6 +129,9 @@ VITL_CONFIG = ("configs/patchfusion_depthanything/"
                "depthanything_vitl_patchfusion_u4k.py")
 BASELINE_CONFIG = ("configs/patchfusion_depthanything/"
                    "depthanything_vitl_{}_pretrain_u4k.py")
+ZOE_CONFIG = "configs/patchfusion_zoedepth/zoedepth_patchfusion_u4k.py"
+ZOE_BASELINE_CONFIG = ("configs/patchfusion_zoedepth/"
+                       "zoedepth_{}_pretrain_u4k.py")
 RAW_SHAPE = (2160, 3840)
 PROCESS_NUM = 4
 KERNEL_SOURCES = {
@@ -138,6 +168,11 @@ FUSED_TOL = 1e-4
 PATH_TOL = 3e-2   # pallas vs einsum attention path, relative to max |depth|
 TINY_TOL = 3e-2   # bf16 card vs f32 CPU, relative to max |depth|
 SNAPSHOT_TOL = 1e-6  # from_pretrained vs the seeded model, rel. to max
+# one BEiT-L block (B = 4, 769 tokens, width 1024, 16 heads) in bf16 against
+# the same block in f32 on the card, relative to max |output|: the bf16
+# contract rounds the residual stream, q, k, v and the probabilities
+BLOCK_TOL = 3e-2
+BEIT_BLOCK = (4, (24, 32), 1024, 16)  # B, grid, width, heads
 # NVIDIA H100 SXM data-sheet peaks (dense): the least time a kernel's work
 # could take is the largest of its bytes, tensor-core FLOPs and other f32
 # operations over these rates
@@ -169,6 +204,26 @@ def tiny_config():
             num_patches=[h * w for (h, w) in sizes[::-1]], n_channels=5,
             g2l=True),
         sigloss=dict(type="SILogLoss"))
+
+
+def tiny_zoe_config():
+    """The toy zoedepth PatchFusion config of tests/test_beit.py
+    (toy_zoe_config: BEiT_tiny branches, 64x96 tiles of a 128x192 image,
+    the fusion stage at its published widths), read with the port's
+    config loader; the tests check that the two agree."""
+    from patchfusion_tpu_torch.config import Config
+
+    mc = Config.fromfile(str(ROOT / ZOE_CONFIG)).model.config.to_dict()
+    for b in ("coarse_branch", "fine_branch"):
+        mc[b] = dict(mc[b], midas_model_type="BEiT_tiny", img_size=[64, 96])
+    mc.update(image_raw_shape=(128, 192), patch_split_num=(2, 2),
+              patch_process_shape=(64, 96))
+    sizes = [(2, 3), (4, 6), (8, 12), (16, 24), (32, 48), (64, 96)]
+    mc["guided_fusion"] = dict(
+        mc["guided_fusion"], patch_process_shape=(64, 96),
+        in_channels=[32, 256, 256, 256, 256, 256],
+        num_patches=[h * w for (h, w) in sizes[::-1]])
+    return mc
 
 
 def write_u4k_split(root, n_scenes: int = 2, shape=RAW_SHAPE,
@@ -383,38 +438,51 @@ def _host_us(fn, calls: int = 20, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+# substrings of the port's kernels' names in a profile
+PORT_KERNEL_NAMES = ("vit_attention_kernel", "clb_", "logbinomial_depth")
+
+
 def _device_ms(fn, calls: int = 20, attempts: int = 3):
-    """-> (kernel time per call on the card, profiling windows used): the
-    sum of the durations of the device events torch.profiler records over
-    `calls` calls, divided by `calls`. A profiling window in which the
-    profiler delivered no device event at all (it has happened once in
-    this script's runs, on an SDPA row that other runs recorded) is
-    profiled again, up to `attempts` windows; none at all fails. The rows
-    keep the count of windows, so a recurring empty profile shows."""
+    """-> (kernel time per call on the card, profiling windows used, device
+    events recorded): the sum of the durations of the device events
+    torch.profiler records over `calls` calls, divided by `calls`. A
+    window is profiled again, up to `attempts` windows, where the profiler
+    delivered no device event at all (it has happened once in this
+    script's runs, on an SDPA row that other runs recorded), or fewer
+    events of the port's kernels than the wrappers launched (late in a
+    full run it has recorded 6 of a row's 20 launches, and all of the
+    other kernels); none complete fails."""
     import torch
 
     for window in range(1, attempts + 1):
         torch.cuda.synchronize()
+        before = sum(counts().values())
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / calls / 1e3, window
-        say("the profiler recorded no device time; profiling again")
-    check(False, f"the profiler recorded no device time in {attempts} "
-          "windows")
+        launched = sum(counts().values()) - before
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        ours = sum(any(k in e.name for k in PORT_KERNEL_NAMES)
+                   for e in events)
+        us = sum(e.time_range.end - e.time_range.start for e in events)
+        if us > 0 and ours == launched:
+            return us / calls / 1e3, window, len(events)
+        say(f"the profiler recorded {len(events)} device events, {ours} of "
+            f"the {launched} launches of the port's kernels; profiling "
+            "again")
+    check(False, f"the profiler lost device events in {attempts} windows")
 
 
 def _timings(fn, prefix: str = "") -> dict:
     """The four times of fn (see the module note), keys prefixed."""
     out = {"ms": _time_ms(fn)}
     out["ms_batched"] = _time_batched_ms(fn)
-    out["device_ms"], out["device_windows"] = _device_ms(fn)
+    out["device_ms"], out["device_windows"], out["device_events"] = \
+        _device_ms(fn)
     out["host_us"] = _host_us(fn)
     return {prefix + k: v for k, v in out.items()}
 
@@ -429,14 +497,17 @@ def _nchw_view(x_nhwc_np, dtype, device):
 
 
 HEAD_SHAPE = (392, 518, 224, 296, 64, 33, 128, 80)  # oh ow ih iw k cin cc hid
+# the BEiT head's: 384x512 from the attractors' 192x256, a 2x upsample
+BEIT_HEAD_SHAPE = (384, 512, 192, 256, 64, 33, 128, 80)
 
 
-def _head_inputs(b, dtype, layout, dev):
-    """Seeded inputs of the head kernels at the head's shapes: p, t,
-    centers, last_cat, cond_lo and the four MLP weights in `dtype`."""
+def _head_inputs(b, dtype, layout, dev, shape=HEAD_SHAPE):
+    """Seeded inputs of the head kernels at a head's shapes (default the
+    DA head's): p, t, centers, last_cat, cond_lo and the four MLP weights
+    in `dtype`."""
     import torch
 
-    oh, ow, ih, iw, k, cin, cc, hid = HEAD_SHAPE
+    oh, ow, ih, iw, k, cin, cc, hid = shape
     rng = np.random.default_rng(b)
     p = rng.random((b, oh, ow), dtype=np.float32) * 0.98 + 0.01
     t = rng.random((b, oh, ow), dtype=np.float32)
@@ -453,19 +524,23 @@ def _head_inputs(b, dtype, layout, dev):
             [torch.from_numpy(w).to(dev, dtype) for w in ws])
 
 
-def _head_kernels(results):
-    """The three head kernels against their twins."""
+def _head_kernels(results, shape=HEAD_SHAPE, family=None):
+    """The three head kernels against their twins at a head's shapes
+    (default the DA head's; family names another head's rows: their keys
+    start with it)."""
     import torch
     from patchfusion_tpu_torch.ops import fused_head as fh
 
     dev = torch.device("cuda")
+    oh, ow, ih, iw = shape[:4]
     for b in (1, 4):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             tol_pt, tol_depth = TOL[dname]
-            bounds = head_bounds(b, *HEAD_SHAPE, dtype.itemsize)
+            bounds = head_bounds(b, *shape, dtype.itemsize)
             for layout in ("nchw-view", "nhwc"):
-                pt, tt, ct, lt, cdt, wl = _head_inputs(b, dtype, layout, dev)
+                pt, tt, ct, lt, cdt, wl = _head_inputs(b, dtype, layout, dev,
+                                                       shape)
                 # logbinomial_depth, and which of its kernels ran
                 before = counts()
                 got = fh.logbinomial_depth(pt, tt, ct)
@@ -496,7 +571,15 @@ def _head_kernels(results):
                 check(e_clb <= tol_pt,
                       f"clb_pt {dname} B={b} {layout}: abs err {e_clb:.3g} "
                       f"> {tol_pt}")
-                crow = {"max_abs_err": e_clb}
+                # its route: the bf16 tensor-core kernel, whose tile
+                # footprint must fit in shared memory (else the wrapper
+                # raises), or the f32 kernel
+                crow = {"max_abs_err": e_clb,
+                        "variant": "tensor-core" if dtype == torch.bfloat16
+                        else "f32"}
+                if dtype == torch.bfloat16:
+                    crow["tile_smem_bytes"] = fh.load_kernels() \
+                        .pf_clb_tc_smem(oh, ow, ih, iw, 0)
                 # clb_logbinomial_depth, against its twin and against the
                 # two-kernel route it fuses
                 gd = fh.clb_logbinomial_depth(lt, cdt, ct, *wl)
@@ -540,8 +623,10 @@ def _head_kernels(results):
                         r["bound_share_device"] = (r["bound_ms"]
                                                    / r["device_ms"])
                     r["library_ms"] = None
-                    results[(name, dname, b, layout)] = r
-                    say(f"kernel {name} {dname} B={b} {layout}: "
+                    key = (name, dname, b, layout)
+                    results[(family, *key) if family else key] = r
+                    say(f"kernel {name} {dname} B={b} {layout}"
+                        f"{f' ({family} head)' if family else ''}: "
                         + json.dumps(r))
 
 
@@ -654,9 +739,13 @@ def _attention_kernel(results):
 
 
 def phase_kernels():
-    """Each kernel against its plain twin at the main-path shapes."""
+    """Each kernel against its plain twin at the main-path shapes, and the
+    head kernels at the BEiT head's (phase beit's (a), run here, early:
+    late in a full run the profiler has lost launches of the port's
+    kernels)."""
     results = {}
     _head_kernels(results)
+    _head_kernels(results, BEIT_HEAD_SHAPE, "beit")
     _attention_kernel(results)
     return results
 
@@ -1099,6 +1188,38 @@ def phase_tiny():
         say(f"tiny m1 bf16 card ({impl} attention) vs f32 cpu: "
             f"max|diff|/max|ref| = {rel:.3g} (tolerance {TINY_TOL})")
         check(rel <= TINY_TOL, f"tiny config ({impl}) differs by {rel:.3g}")
+    _tiny_zoe()
+
+
+def _tiny_zoe():
+    """The toy zoedepth config (BEiT_tiny) in bf16 on the card against the
+    same seeded weights in float32 on the CPU, m1 at 128x192, with the head
+    kernels launched once per metric-bins head."""
+    import torch
+    from patchfusion_tpu_torch.api import PatchFusion
+
+    cfg = tiny_zoe_config()
+    cpu = PatchFusion.from_config(cfg, device="cpu", dtype=torch.float32,
+                                  seed=1)
+    gpu = PatchFusion.from_config(cfg, device="cuda", dtype=torch.bfloat16,
+                                  seed=1)
+    gpu.net.load_state_dict(cpu.net.state_dict())
+    rng = np.random.default_rng(9)
+    hr = rng.random((128, 192, 3), dtype=np.float32)
+    lr = rng.random((1, 64, 96, 3), dtype=np.float32)
+    ref = cpu.infer(lr, hr, cai_mode="m1", process_num=2)
+    reset_counts()
+    got = gpu.infer(lr, hr, cai_mode="m1", process_num=2)
+    launches = counts()
+    check(got.shape == ref.shape, f"tiny zoe: shape {got.shape}")
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    say(f"tiny zoedepth m1 bf16 card vs f32 cpu: max|diff|/max|ref| = "
+        f"{rel:.3g} (tolerance {TINY_TOL}); head launches "
+        f"{launches['clb_pt']} + {launches['logbinomial_depth']}")
+    check(rel <= TINY_TOL, f"tiny zoedepth config differs by {rel:.3g}")
+    check(launches["clb_pt"] == launches["logbinomial_depth"] == 5
+          and launches["logbinomial_depth_pixel"] == 0,
+          f"tiny zoedepth launches {launches}")
 
 
 # ---------------------------------------------------------------------------
@@ -1193,7 +1314,7 @@ def _head_gradients():
                   f"twin's (tolerance {tol})")
             errs.append(rel)
         args = [a.detach() for _, a in got]
-        device_ms, windows = _device_ms(lambda: torch.autograd.grad(
+        device_ms, windows, _ = _device_ms(lambda: torch.autograd.grad(
             out, leaves, cot, retain_graph=True))
         row = {"max_grad_rel_err": max(errs),
                "forward_ms": _time_ms(lambda: wrapper(*args)),
@@ -1609,6 +1730,288 @@ def phase_train():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase beit: the BEiT ZoeDepth family (configs/patchfusion_zoedepth)
+# ---------------------------------------------------------------------------
+
+def _beit_block():
+    """(b): one BEiT-L block at full width, seeded (LayerScale gammas
+    U(0.5, 1.5), q/v biases and the table N(0, 0.5), so the attention
+    counts), in bf16 against the same block in f32 on the card."""
+    import copy
+
+    import torch
+    from patchfusion_tpu_torch.api import init_weights
+    from patchfusion_tpu_torch.models.beit import BeitBlock
+
+    b, grid, d, h = BEIT_BLOCK
+    with torch.device("cuda"):
+        blk = BeitBlock(d, h, grid)
+    init_weights(blk, 0)
+    rng = np.random.default_rng(0)
+
+    def draw(p, fn):
+        p.copy_(torch.from_numpy(fn(p.shape).astype(np.float32)))
+
+    with torch.no_grad():
+        for p in (blk.gamma_1, blk.gamma_2):
+            draw(p, lambda s: rng.uniform(0.5, 1.5, s))
+        for p in (blk.attn.q_bias, blk.attn.v_bias,
+                  blk.attn.relative_position_bias_table):
+            draw(p, lambda s: 0.5 * rng.standard_normal(s))
+        x = torch.from_numpy(rng.standard_normal(
+            (b, grid[0] * grid[1] + 1, d), dtype=np.float32)).cuda()
+        ref = blk(x)
+        blk16 = copy.deepcopy(blk).to(torch.bfloat16)
+        x16 = x.to(torch.bfloat16)
+        got = blk16(x16).float()
+        torch.cuda.synchronize()
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        moved = ((ref - x).abs().max() / x.abs().max()).item()
+        ms16 = _time_ms(lambda: blk16(x16))
+        ms32 = _time_ms(lambda: blk(x))
+    say(f"beit: one BEiT-L block (B={b}, N={grid[0] * grid[1] + 1}, D={d}, "
+        f"H={h}) bf16 vs f32 on the card: max|diff|/max|f32| = {rel:.3g} "
+        f"(tolerance {BLOCK_TOL}); the block moves its input by {moved:.3g} "
+        f"of max; {ms16:.3f} ms bf16, {ms32:.3f} ms f32 (one call)")
+    check(bool(torch.isfinite(got).all()), "beit block: non-finite output")
+    check(moved > 0.1, f"beit block: the residual branches moved the input "
+          f"by only {moved:.3g}")
+    check(rel <= BLOCK_TOL, f"beit block bf16 differs by {rel:.3g}")
+    return {"rel_err": rel, "ms_bf16": ms16, "ms_f32": ms32}
+
+
+def _zoe_config():
+    """zoedepth_patchfusion_u4k.py's model config without branch
+    checkpoints, as zoedepth_general.py sets it (load_branch=False,
+    pretrain_model=None)."""
+    from patchfusion_tpu_torch.config import Config
+
+    cfg = Config.fromfile(str(ROOT / ZOE_CONFIG)).model.config.to_dict()
+    cfg.update(load_branch=False, pretrain_model=None)
+    return cfg
+
+
+def build_zoe():
+    """BEiT ZoeDepth PatchFusion at full width in bf16, seeded weights."""
+    import torch
+    from patchfusion_tpu_torch.api import PatchFusion
+    from patchfusion_tpu_torch.models.zoedepth import ZoeDepthBEiT
+
+    t0 = time.perf_counter()
+    model = PatchFusion.from_config(_zoe_config(), dtype=torch.bfloat16,
+                                    seed=0)
+    torch.cuda.synchronize()
+    say(f"beit: zoedepth build + seeded init: "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.net.parameters()) / 1e6:.1f} M "
+        "params")
+    check(isinstance(model.net.coarse_branch, ZoeDepthBEiT)
+          and isinstance(model.net.fine_branch, ZoeDepthBEiT),
+          "the zoedepth config did not build BEiT branches")
+    check(tuple(model.tile_cfg.patch_process_shape) == (384, 512),
+          "zoedepth process shape")
+    check(model.resizer.multiple_of == 32, "zoedepth resizer")
+    return model
+
+
+def _beit_requests(model):
+    """(c): four m1 requests (the first warms up) and one m2 at 2160x3840,
+    each checked for depth and launches (9 / 27 per image of each head
+    kernel, the tiled logbinomial_depth only); then one m1 with
+    PF_ATTN_IMPL=pallas, which reaches no BEiT attention (0 attention
+    launches, the same depth)."""
+    import torch
+
+    n_tiles = _tiles(model.tile_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with attn_impl("einsum"):
+        m1 = [_request(model, "m1", i, _want(n_tiles["m1"]))
+              for i in range(4)]
+        m2, _ = _request(model, "m2", 4, _want(n_tiles["m2"]))
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with attn_impl("pallas"):
+        _, depth = _request(model, "m1", 1, _want(n_tiles["m1"]))
+    check(np.array_equal(depth, m1[1][1]),
+          "PF_ATTN_IMPL=pallas changed the BEiT model's depth")
+    warm = [ms for ms, _ in m1[1:]]
+    say(f"beit: zoedepth m1 latency: first {m1[0][0]:.1f} ms, warm "
+        f"{' / '.join(f'{ms:.1f}' for ms in warm)} ms; m2 {m2:.1f} ms; "
+        f"peak allocated {peak:.2f} GiB; launches {launches}")
+    return {"m1_first_ms": m1[0][0], "m1_warm_ms": warm, "m2_ms": m2,
+            "peak_gib": peak}, launches
+
+
+def _published_branch_sd(branch_cfg, min_depth, max_depth, seed=0):
+    """A reference coarse-branch state dict in the published layout: the
+    BEiT-L branch at the 24x24 grid of beit_large_patch16_384 (tables of
+    47 * 47 + 3 rows, 577 x 577 index buffers), values drawn with numpy:
+    weights N(0, 1 / fan_in), norm scales 1 + N(0, 0.1), biases, q/v
+    biases and the cls token N(0, 0.02), tables N(0, 0.1), LayerScale
+    gammas U(0.5, 1.5); buffers as built."""
+    import torch
+    from patchfusion_tpu_torch.models.builder import build_zoedepth_branch
+
+    net = build_zoedepth_branch(branch_cfg, min_depth, max_depth,
+                                device="cpu", process_shape=(384, 384))
+    rng = np.random.default_rng(seed)
+    params = dict(net.named_parameters())
+    sd = {}
+    for k, v in net.state_dict().items():
+        if k not in params:
+            sd[k] = v
+            continue
+        leaf = k.rsplit(".", 1)[-1]
+        shape = tuple(v.shape)
+        if leaf == "relative_position_bias_table":
+            a = 0.1 * rng.standard_normal(shape, dtype=np.float32)
+        elif leaf in ("gamma_1", "gamma_2"):
+            a = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        elif leaf == "weight" and len(shape) >= 2:
+            a = rng.standard_normal(shape, dtype=np.float32) / np.float32(
+                np.sqrt(np.prod(shape[1:])))
+        elif leaf == "weight":
+            a = 1 + 0.1 * rng.standard_normal(shape, dtype=np.float32)
+        else:
+            a = 0.02 * rng.standard_normal(shape, dtype=np.float32)
+        sd[k] = torch.from_numpy(a)
+    return sd
+
+
+def _beit_reference(model):
+    """(d): a synthetic reference coarse-branch .pth in the published
+    layout, loaded through BaselinePretrain.from_torch on the coarse
+    pretrain config at 384x512: the tables resampled to 24x32 and the
+    index buffers rebuilt; one request."""
+    import tempfile
+
+    import torch
+    from patchfusion_tpu_torch.api import BaselinePretrain
+    from patchfusion_tpu_torch.config import Config
+    from patchfusion_tpu_torch.models.beit import table_rows
+
+    cfg = Config.fromfile(str(ROOT / ZOE_BASELINE_CONFIG.format("coarse")))
+    mcfg = cfg.model
+    branch_cfg = mcfg.coarse_branch.to_dict()
+    pps = tuple(cfg.train_dataloader.dataset.transform_cfg
+                .network_process_size)
+    key = "core.core.pretrained.model.blocks.{}.attn.{}"
+    with tempfile.TemporaryDirectory(prefix="pf_beit_") as tmp:
+        path = Path(tmp) / "coarse.pth"
+        t = time.perf_counter()
+        sd = _published_branch_sd(branch_cfg, mcfg.min_depth, mcfg.max_depth)
+        check(tuple(sd[key.format(0, "relative_position_bias_table")].shape)
+              == (47 * 47 + 3, 16)
+              and tuple(sd[key.format(23, "relative_position_index")].shape)
+              == (577, 577), "the published layout's table or index")
+        torch.save({"model_state_dict": sd}, path)
+        write_s = time.perf_counter() - t
+        size = path.stat().st_size
+        del sd
+        t = time.perf_counter()
+        bp = BaselinePretrain.from_torch(
+            branch_cfg, mcfg.min_depth, mcfg.max_depth, str(path),
+            target="coarse", patch_process_shape=pps, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    blocks = bp.net.core.core.pretrained.model.blocks
+    check(all(tuple(b.attn.relative_position_bias_table.shape)
+              == (table_rows((24, 32)), 16)
+              and tuple(b.attn.relative_position_index.shape) == (769, 769)
+              for b in blocks), "the tables were not fitted to 24x32")
+    lr, _ = _images(model, 0)
+    reset_counts()
+    depth = bp.infer(image_lr=lr)
+    launches = counts()
+    check(depth.shape == pps, f"reference coarse depth {depth.shape}")
+    check(bool(np.isfinite(depth).all()) and bool((depth > 0).all()),
+          "reference coarse depth not finite and positive")
+    check(launches["clb_pt"] == launches["logbinomial_depth"] == 1,
+          f"reference coarse launches {launches}")
+    say(f"beit: published-layout coarse .pth ({size / 2**30:.2f} GiB, 24x24 "
+        f"tables) written in {write_s:.1f} s, loaded by "
+        f"BaselinePretrain.from_torch (tables resampled to 24x32, bf16, "
+        f"card) in {load_s:.1f} s; depth {depth.shape} in "
+        f"[{depth.min():.4g}, {depth.max():.4g}]")
+    del bp
+    torch.cuda.empty_cache()
+    return {"write_s": write_s, "load_s": load_s, "gib": size / 2**30}
+
+
+def _beit_train():
+    """(e): two fusion-stage steps at batch 4 with --amp (bf16 autocast
+    over f32 masters, the frozen BEiT branches in bf16) on one fixed batch
+    of 384x512 crops: finite losses, 3 + 3 head launches a step, each
+    step's time on the device's clock, the peak."""
+    import torch
+    from patchfusion_tpu_torch.api import PatchFusion
+    from patchfusion_tpu_torch.engine import training
+
+    net = PatchFusion.from_config(_zoe_config(), device="cuda", seed=0).net
+    state = training.create_train_state(
+        net, training.make_onecycle_optimizer(1e-4, 10),
+        frozen_dtype=torch.bfloat16, amp=True)
+    rng = np.random.default_rng(13)
+    batch = {"image_lr": rng.random((4, 384, 512, 3), dtype=np.float32),
+             "crops_image_hr": rng.random((4, 384, 512, 3),
+                                          dtype=np.float32),
+             "crop_depths": rng.random((4, 384, 512, 1), dtype=np.float32)
+             * 40 + 1,
+             "bboxs": np.array([[0, 0, 960, 540], [960, 540, 1920, 1080],
+                                [2880, 0, 3840, 540],
+                                [1920, 1620, 2880, 2160]], np.float32)}
+    batch = training.to_device_batch(batch, "cuda", batch.keys())
+    step = training.make_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses = [], []
+    for _ in range(2):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logs = step(state, batch)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        losses.append(float(logs["total_loss"]))
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(map(math.isfinite, losses)), f"beit train losses {losses}")
+    check(launches["clb_pt"] == launches["logbinomial_depth"] == 6,
+          f"beit train launches {launches}")
+    say(f"beit: zoedepth fusion stage, batch 4, --amp: 2 steps, losses "
+        f"{losses}, {times[0]:.1f} / {times[1]:.1f} ms on the device's "
+        f"clock, peak allocated {peak:.2f} GiB, head launches "
+        f"{launches['clb_pt']} + {launches['logbinomial_depth']}")
+    del state, net
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": times, "peak_gib": peak,
+            "launches": launches}
+
+
+def phase_beit():
+    """Step 10: the BEiT ZoeDepth family ((a), the head kernels at the
+    BEiT head's shapes, runs in phase_kernels). (b) one BEiT-L block, (c)
+    the zoedepth model's requests, (d) reference weights in the published
+    layout, (e) two fusion-stage steps. Returns (the path's launches, the
+    phase's figures)."""
+    import torch
+
+    out = {"block": _beit_block()}
+    model = build_zoe()
+    out["requests"], launches = _beit_requests(model)
+    out["reference"] = _beit_reference(model)
+    del model
+    torch.cuda.empty_cache()
+    out["train"] = _beit_train()
+    say("beit summary: " + json.dumps(out))
+    return launches, out
+
+
 def main(argv) -> int:
     root = ROOT
     if argv[:1] == ["--time-only"] and len(argv) == 2:
@@ -1640,6 +2043,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_tiny()
     tr = phase_train()
+    beit_launches, _ = phase_beit()
     launches = {"clb_pt": main_launches["clb_pt"],
                 "logbinomial_depth": main_launches["logbinomial_depth"],
                 "vit_attention": pallas_launches["vit_attention"],
@@ -1647,6 +2051,8 @@ def main(argv) -> int:
                     fused_launches["clb_logbinomial_depth"]}
     for name, n in launches.items():
         check(n > 0, f"{name} never ran on its path")
+    for name in ("clb_pt", "logbinomial_depth"):
+        check(beit_launches[name] > 0, f"{name} never ran on the BEiT path")
     kernels = []
     for name in ("clb_pt", "logbinomial_depth", "vit_attention",
                  "clb_logbinomial_depth"):
@@ -1663,6 +2069,16 @@ def main(argv) -> int:
                                 tr["fusion"]["launches"][name]}
                            if name in ("clb_pt", "logbinomial_depth")
                            else {}),
+                        **({"launches_beit": beit_launches[name],
+                            "beit": {key: kres[(
+                                "beit", name, "bfloat16", 4, "nchw-view")]
+                                .get(key) for key in (
+                                "variant", "tile_smem_bytes", "max_abs_err",
+                                "ms", "ms_batched", "device_ms",
+                                "device_events", "plain_ms", "bound_ms",
+                                "bound_by", "bound_share_device")}}
+                           if name in ("clb_pt", "logbinomial_depth")
+                           else {}),
                         **({"backward_ms": tr["heads"][name]["backward_ms"],
                             "backward_device_ms":
                                 tr["heads"][name]["backward_device_ms"],
@@ -1675,6 +2091,7 @@ def main(argv) -> int:
                         "ms_batched": r["ms_batched"],
                         "device_ms": r["device_ms"],
                         "device_windows": r["device_windows"],
+                        "device_events": r["device_events"],
                         "host_us": r["host_us"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

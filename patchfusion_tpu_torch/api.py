@@ -29,9 +29,9 @@ import torch
 import torch.nn as nn
 
 from patchfusion_tpu_torch.engine.checkpoint import (
-    load_fusion_state_dict, load_patchfusion_from_torch,
-    load_patchfusion_hub_dir, load_torch_state_dict, read_weights,
-    save_params)
+    load_branch_state_dict, load_fusion_state_dict,
+    load_patchfusion_from_torch, load_patchfusion_hub_dir,
+    load_torch_state_dict, read_weights, save_params)
 from patchfusion_tpu_torch.engine.inference import PatchFusionInference
 from patchfusion_tpu_torch.engine.training import batch_stats, split_params
 from patchfusion_tpu_torch.models.builder import (build_patchfusion,
@@ -51,7 +51,13 @@ def init_weights(net: nn.Module, seed: int) -> None:
     at 2 sigma), biases 0, norm scales and LayerScale gammas 1, position
     embeddings and relative-position tables normal(0.02), cls token
     normal(1e-6). Drawn in float32 on the weights' device from one
-    torch.Generator."""
+    torch.Generator.
+
+    BEiT leaves (one difference from the JAX package): the qkv weight is
+    LeCun, q_bias and v_bias 0, gamma_1 and gamma_2 1. The JAX package's
+    rule, by leaf name, sends `qkv_kernel`, `gamma_1` and `gamma_2` to its
+    zeros branch, so its seeded BEiT blocks are identity maps; here every
+    block attends."""
     dev = next(net.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
     norms = (nn.LayerNorm, nn.BatchNorm2d)
@@ -67,9 +73,9 @@ def init_weights(net: nn.Module, seed: int) -> None:
                 std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
                 v = torch.randn(p.shape, generator=gen, device=dev)
                 p.copy_(v.clamp_(-2.0, 2.0) * std)
-            elif leaf == "bias" or leaf == "mask_token":
+            elif leaf in ("bias", "mask_token", "q_bias", "v_bias"):
                 p.zero_()
-            elif leaf == "gamma":
+            elif leaf in ("gamma", "gamma_1", "gamma_2"):
                 p.fill_(1.0)
             elif leaf in _NORMAL_002:
                 p.copy_(torch.randn(p.shape, generator=gen, device=dev)
@@ -256,21 +262,24 @@ class BaselinePretrain:
                  dtype: torch.dtype = torch.float32, seed: int = 0,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None):
         """Seeded random weights, or `state_dict` (a branch's, loaded
-        strictly on the CPU before the branch is moved and cast). On the
-        card unless the caller passes device="cpu"."""
+        strictly on the CPU before the branch is moved and cast; a BEiT
+        branch's tables fitted to its grid). On the card unless the caller
+        passes device="cpu". patch_process_shape is the branch's input
+        size, which fixes a BEiT branch's grid."""
         if target not in ("coarse", "fine"):
             raise ValueError(f"target must be 'coarse' or 'fine', not "
                              f"{target!r}")
         device = check_device(device)
         self.target = target
+        pps = tuple(patch_process_shape)
         if state_dict is None:
             net = build_zoedepth_branch(branch_cfg, min_depth, max_depth,
-                                        device=device)
+                                        device=device, process_shape=pps)
             init_weights(net, seed)
         else:
             net = build_zoedepth_branch(branch_cfg, min_depth, max_depth,
-                                        device="cpu")
-            net.load_state_dict(state_dict, strict=True)
+                                        device="cpu", process_shape=pps)
+            load_branch_state_dict(net, state_dict)
         self.net = net.to(device=device, dtype=dtype)
         self.tile_cfg = TileConfig(tuple(image_raw_shape),
                                    tuple(patch_split_num),

@@ -5,10 +5,12 @@ parameter tree (nested dicts of numpy arrays, as `jax.device_get` returns
 them) and gives the reference-layout state_dict that the port's
 PatchFusionNet loads with strict=True. It is a numpy-only copy of
 patchfusion_tpu/convert/jax2torch.py::patchfusion_state_dict with
-fusion_only=False for the DA (DINOv2) family; the original imports flax
-modules, so the port cannot call it. Keys that the flax tree lacks but the
-reference layout holds (mask_token, the dead G2L embed_proj, the Swin
-relative_position_index and the log-binomial buffers) are synthesized.
+fusion_only=False, for the DA (DINOv2) family and the BEiT (MiDaS) one
+(jax2torch.py:140-210); the original imports flax modules, so the port
+cannot call it. Keys that the flax tree lacks but the reference layout
+holds (mask_token, the dead G2L embed_proj, the Swin and BEiT
+relative_position_index buffers and the log-binomial buffers) are
+synthesized.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from patchfusion_tpu_torch.models.dinov2 import VIT_CONFIGS
+from patchfusion_tpu_torch.convert import branch_conversion_spec
+from patchfusion_tpu_torch.models import beit
 from patchfusion_tpu_torch.models.swin import relative_position_index
 
 SD = Dict[str, np.ndarray]
@@ -187,10 +190,85 @@ def guided_fusion_state_dict(p: Mapping, stats: Mapping, depths,
     return sd
 
 
-def _vit_depth(branch_cfg: Mapping) -> int:
-    if branch_cfg.get("type", "DA-ZoeDepth") != "DA-ZoeDepth":
-        raise NotImplementedError("only DA-ZoeDepth branches are ported")
-    return VIT_CONFIGS[branch_cfg.get("midas_model_type", "vitl")]["depth"]
+def beit_backbone_state_dict(p: Mapping, depth: int, prefix: str,
+                             grid) -> SD:
+    """flax BeitBackbone -> timm's BEiT naming (pretrained.model.*), with
+    the relative_position_index buffers of `grid`."""
+    sd: SD = {}
+    sd[prefix + "cls_token"] = _np(p["cls_token"])
+    inv_conv(sd, prefix + "patch_embed.proj", p["patch_embed"])
+    idx = beit.relative_position_index(*grid)
+    for i in range(depth):
+        b = p[f"blocks_{i}"]
+        bp = f"{prefix}blocks.{i}"
+        inv_layernorm(sd, bp + ".norm1", b["norm1"])
+        sd[bp + ".attn.qkv.weight"] = _np(b["attn"]["qkv_kernel"]).T
+        sd[bp + ".attn.q_bias"] = _np(b["attn"]["q_bias"])
+        sd[bp + ".attn.v_bias"] = _np(b["attn"]["v_bias"])
+        sd[bp + ".attn.relative_position_bias_table"] = _np(
+            b["attn"]["relative_position_bias_table"])
+        sd[bp + ".attn.relative_position_index"] = idx
+        inv_linear(sd, bp + ".attn.proj", b["attn"]["proj"])
+        sd[bp + ".gamma_1"] = _np(b["gamma_1"])
+        sd[bp + ".gamma_2"] = _np(b["gamma_2"])
+        inv_layernorm(sd, bp + ".norm2", b["norm2"])
+        inv_linear(sd, bp + ".mlp.fc1", b["mlp_fc1"])
+        inv_linear(sd, bp + ".mlp.fc2", b["mlp_fc2"])
+    return sd
+
+
+def midas_scratch_state_dict(p: Mapping, pre_prefix: str,
+                             scratch_prefix: str) -> SD:
+    """flax MidasDPTHead -> MiDaS's act_postprocessN (under pretrained.)
+    and scratch.* naming."""
+    sd: SD = {}
+    for i in range(4):
+        ap = f"{pre_prefix}act_postprocess{i + 1}"
+        inv_linear(sd, ap + ".0.project.0", p[f"readout_{i}"])
+        inv_conv(sd, ap + ".3", p[f"project_{i}"])
+    # ConvTranspose(transpose_kernel=True): see inv_conv
+    inv_conv(sd, pre_prefix + "act_postprocess1.4", p["resize_0"])
+    inv_conv(sd, pre_prefix + "act_postprocess2.4", p["resize_1"])
+    inv_conv(sd, pre_prefix + "act_postprocess4.4", p["resize_3"])
+    sp = scratch_prefix
+    for i in range(4):
+        inv_conv(sd, f"{sp}layer{i + 1}_rn", p[f"layer{i + 1}_rn"])
+        rp = f"{sp}refinenet{i + 1}"
+        ffb = p[f"refinenet{i + 1}"]
+        inv_conv(sd, rp + ".resConfUnit1.conv1", ffb["rcu1"]["conv1"])
+        inv_conv(sd, rp + ".resConfUnit1.conv2", ffb["rcu1"]["conv2"])
+        inv_conv(sd, rp + ".resConfUnit2.conv1", ffb["rcu2"]["conv1"])
+        inv_conv(sd, rp + ".resConfUnit2.conv2", ffb["rcu2"]["conv2"])
+        inv_conv(sd, rp + ".out_conv", ffb["out_conv"])
+    inv_conv(sd, sp + "output_conv.0", p["output_conv_0"])
+    inv_conv(sd, sp + "output_conv.2", p["output_conv_2"])
+    inv_conv(sd, sp + "output_conv.4", p["output_conv_4"])
+    return sd
+
+
+def zoedepth_beit_state_dict(p: Mapping, depth: int, grid,
+                             prefix: str) -> SD:
+    """flax ZoeDepthBEiT -> the reference ZoeDepth(MidasCore) naming
+    (core.core.pretrained.*, core.core.scratch.*, conv2.*, the head)."""
+    sd = beit_backbone_state_dict(p["core"]["pretrained"], depth,
+                                  prefix + "core.core.pretrained.model.",
+                                  grid)
+    sd.update(midas_scratch_state_dict(p["core"]["scratch"],
+                                       prefix + "core.core.pretrained.",
+                                       prefix + "core.core.scratch."))
+    inv_conv(sd, prefix + "conv2", p["conv2"])
+    sd.update(metric_bins_state_dict(p["head"], prefix))
+    return sd
+
+
+def branch_state_dict(p: Mapping, config: Mapping[str, Any],
+                      prefix: str = "") -> SD:
+    """One branch's flax params -> its state_dict, by the config's family
+    (branch_conversion_spec)."""
+    family, depth, grid = branch_conversion_spec(config)
+    if family == "midas":
+        return zoedepth_beit_state_dict(p, depth, grid, prefix)
+    return zoedepth_state_dict(p, depth, prefix)
 
 
 def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
@@ -199,12 +277,10 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
     PatchFusionNet state_dict (numpy arrays; `to_torch` converts).
     config: the reference `model.config` dict the nets were built from."""
     sd: SD = {}
-    sd.update(zoedepth_state_dict(params["coarse_branch"],
-                                  _vit_depth(config["coarse_branch"]),
-                                  "coarse_branch."))
-    sd.update(zoedepth_state_dict(params["fine_branch"],
-                                  _vit_depth(config["fine_branch"]),
-                                  "fine_branch."))
+    sd.update(branch_state_dict(params["coarse_branch"], config,
+                                "coarse_branch."))
+    sd.update(branch_state_dict(params["fine_branch"], config,
+                                "fine_branch."))
     for i in range(6):
         inv_conv(sd, f"fusion_conv_list.{i}", params[f"fusion_conv_{i}"])
     depths = tuple(config["guided_fusion"].get("depth", (2, 2, 3, 3, 4, 4)))

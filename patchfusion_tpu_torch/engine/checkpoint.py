@@ -30,8 +30,15 @@ directory:
     the full state dict, loaded strictly.
 
 The port's modules keep the reference's state_dict names, so the files load
-without a key mapping. Loading happens wherever the net's parameters lie;
-the callers in api.py load on the CPU before moving and casting the net.
+without a key mapping. One thing is adapted: a BEiT branch's
+relative-position tables were trained at the published 24x24 grid
+(beit_large_patch16_384), and the port sizes them for its process shape's
+grid (24x32 at 384x512), as the JAX importer does
+(patchfusion_tpu/convert/torch2jax.py:288-376): `fit_rel_pos_tables`
+resamples each table to its module's grid and rebuilds the index buffer
+there; every other key loads strictly. Loading happens wherever the net's
+parameters lie; the callers in api.py load on the CPU before moving and
+casting the net.
 """
 
 from __future__ import annotations
@@ -41,8 +48,14 @@ import pickle
 import zipfile
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+
+from patchfusion_tpu_torch.models.beit import (BeitAttention,
+                                               relative_position_index,
+                                               table_rows)
 
 FORMAT = "patchfusion_tpu_torch"  # the "format" entry of the port's files
 
@@ -155,6 +168,82 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return blob.get("model_state_dict", blob)
 
 
+def beit_grid_from(nrel: int, n_tokens: int) -> Tuple[int, int]:
+    """The grid (h, w) with (2h-1)(2w-1) == nrel and h*w == n_tokens."""
+    for h in range(1, n_tokens + 1):
+        if n_tokens % h:
+            continue
+        w = n_tokens // h
+        if (2 * h - 1) * (2 * w - 1) == nrel:
+            return (h, w)
+    raise ValueError(f"inconsistent BEiT table: nrel={nrel}, "
+                     f"tokens={n_tokens}")
+
+
+def resample_beit_rel_pos_table(table: torch.Tensor,
+                                old_grid: Tuple[int, int],
+                                new_grid: Tuple[int, int]) -> torch.Tensor:
+    """A BEiT relative-position-bias table ((2h0-1)(2w0-1)+3, heads) ->
+    ((2h1-1)(2w1-1)+3, heads): the h-major offset grid resampled bilinear
+    with align_corners=False (what MiDaS v3.1 applies at runtime for
+    non-384 inputs), in float32, the three cls rows passed through; the
+    same table when the grids match. Returns the table's dtype."""
+    if tuple(old_grid) == tuple(new_grid):
+        return table
+    oh, ow = 2 * old_grid[0] - 1, 2 * old_grid[1] - 1
+    nh, nw = 2 * new_grid[0] - 1, 2 * new_grid[1] - 1
+    if table.shape[0] != oh * ow + 3:
+        raise ValueError(f"table of {table.shape[0]} rows is not of the "
+                         f"{tuple(old_grid)} grid")
+    heads = table.shape[1]
+    sub = table[:oh * ow].float().reshape(oh, ow, heads).permute(2, 0, 1)
+    sub = F.interpolate(sub[None], size=(nh, nw), mode="bilinear",
+                        align_corners=False)[0]
+    sub = sub.permute(1, 2, 0).reshape(nh * nw, heads)
+    return torch.cat([sub, table[oh * ow:].float()]).to(table.dtype)
+
+
+def fit_rel_pos_tables(net: nn.Module, sd: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """`sd` with each BEiT attention's table resampled to the grid of its
+    module in `net` and its relative_position_index rebuilt at that grid
+    (the state dict's keys as `net.state_dict()` names them). The stored
+    grid comes from the state dict's index buffer (its N+1 rows), or from
+    a square table where there is none. Other keys are untouched."""
+    out = dict(sd)
+    for name, mod in net.named_modules():
+        if not isinstance(mod, BeitAttention):
+            continue
+        prefix = f"{name}." if name else ""
+        tkey = prefix + "relative_position_bias_table"
+        ikey = prefix + "relative_position_index"
+        if tkey not in out:
+            continue
+        table = torch.as_tensor(out[tkey])
+        if table.shape[0] != table_rows(mod.grid):
+            nrel = table.shape[0] - 3
+            if ikey in out:
+                old = beit_grid_from(nrel, int(out[ikey].shape[0]) - 1)
+            else:
+                side = int(round(np.sqrt(nrel)))
+                if side * side != nrel:
+                    raise ValueError(
+                        f"{tkey}: cannot infer the grid of a non-square "
+                        f"table of {table.shape[0]} rows without its "
+                        "relative_position_index")
+                old = ((side + 1) // 2, (side + 1) // 2)
+            out[tkey] = resample_beit_rel_pos_table(table, old, mod.grid)
+        out[ikey] = torch.tensor(relative_position_index(*mod.grid))
+    return out
+
+
+def load_branch_state_dict(branch: nn.Module,
+                           sd: Dict[str, torch.Tensor]) -> None:
+    """A reference branch checkpoint into a ZoeDepth branch, strictly,
+    its BEiT tables fitted to the branch's grid (fit_rel_pos_tables)."""
+    branch.load_state_dict(fit_rel_pos_tables(branch, sd), strict=True)
+
+
 def load_fusion_state_dict(net: nn.Module, sd: Dict[str, torch.Tensor]
                            ) -> None:
     """Merge a fusion-only state dict over `net` (strict=False): missing
@@ -172,10 +261,9 @@ def load_patchfusion_from_torch(net: nn.Module, coarse_path: str,
     branch file strictly into its branch (reference patchfusion.py:105-109),
     then the fusion-only file, where one is given (load_dict strict=False);
     without one the fusion part keeps its current weights."""
-    net.coarse_branch.load_state_dict(load_torch_state_dict(coarse_path),
-                                      strict=True)
-    net.fine_branch.load_state_dict(load_torch_state_dict(fine_path),
-                                    strict=True)
+    load_branch_state_dict(net.coarse_branch,
+                           load_torch_state_dict(coarse_path))
+    load_branch_state_dict(net.fine_branch, load_torch_state_dict(fine_path))
     if fusion_path:
         load_fusion_state_dict(net, load_torch_state_dict(fusion_path))
 
@@ -202,5 +290,7 @@ def load_patchfusion_hub_dir(net: nn.Module, path: str) -> None:
     """Load a snapshot directory's full state dict into a PatchFusionNet,
     strictly, taking the file's tensors as the net's parameters and buffers
     (assign=True: the net may be built on the meta device, and nothing is
-    copied twice)."""
-    net.load_state_dict(read_hub_state_dict(path), strict=True, assign=True)
+    copied twice), BEiT tables fitted to the net's grid
+    (fit_rel_pos_tables)."""
+    net.load_state_dict(fit_rel_pos_tables(net, read_hub_state_dict(path)),
+                        strict=True, assign=True)

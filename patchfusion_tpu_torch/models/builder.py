@@ -12,7 +12,7 @@ import torch
 from patchfusion_tpu_torch.config.registry import MODELS
 from patchfusion_tpu_torch.models.patchfusion import (PatchFusionNet,
                                                       TileConfig)
-from patchfusion_tpu_torch.models.zoedepth import ZoeDepthDA, make_zoe_branch
+from patchfusion_tpu_torch.models.zoedepth import make_zoe_branch
 
 ZOE_KEYS = ("n_bins", "bin_centers_type", "bin_embedding_dim",
             "n_attractors", "attractor_alpha", "attractor_gamma",
@@ -23,9 +23,9 @@ FUSION_KEYS = ("n_channels", "in_channels", "depth", "num_heads",
 
 
 def zoe_branch_kwargs(branch_cfg: Dict[str, Any]) -> Dict[str, Any]:
-    """Reference zoe_depth_config dict -> make_zoe_branch kwargs. Only the
-    'DA-ZoeDepth' (DINOv2 core) family is ported; 'ZoeDepth' (BEiT) maps
-    to core_family='midas', which the branch factory rejects."""
+    """Reference zoe_depth_config dict -> make_zoe_branch kwargs:
+    'DA-ZoeDepth' (DINOv2 core), or 'ZoeDepth', which maps to
+    core_family='midas' (the MiDaS DPT_BEiT_L_384 core)."""
     t = branch_cfg.get("type", "DA-ZoeDepth")
     if t not in ("DA-ZoeDepth", "ZoeDepth"):
         raise NotImplementedError(f"unknown branch type {t!r}")
@@ -84,12 +84,14 @@ def build_patchfusion(config: Dict[str, Any], dtype=torch.float32,
 
 def build_zoedepth_branch(branch_cfg: Dict[str, Any], min_depth: float,
                           max_depth: float, dtype=torch.float32,
-                          device="cuda") -> ZoeDepthDA:
+                          device="cuda", process_shape=None
+                          ) -> torch.nn.Module:
     """A standalone coarse or fine branch (the BaselinePretrain stages),
     built on `device` (the card unless the caller asks for the CPU) and
-    cast to `dtype`, in eval mode."""
+    cast to `dtype`, in eval mode. process_shape: the input size, which
+    fixes a BEiT branch's grid (default 384x512)."""
     device = check_device(device)
     with torch.device(device):
         net = make_zoe_branch(zoe_branch_kwargs(branch_cfg), min_depth,
-                              max_depth)
+                              max_depth, process_shape)
     return net.to(device=device, dtype=dtype).eval()

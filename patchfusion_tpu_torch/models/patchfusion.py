@@ -1,7 +1,7 @@
 """PatchFusion network (patchfusion_tpu/models/patchfusion.py; reference
 estimator/models/patchfusion.py and baseline_pretrain.py's tile geometry).
 
-Frozen coarse and fine DA-ZoeDepth branches, six fusion convs, the
+Frozen coarse and fine ZoeDepth branches (DA or BEiT), six fusion convs, the
 guided-fusion U-Net with G2L attention and a metric-bins decoder head. As in
 the JAX package, G2L attention over the whole-image coarse features runs
 once per image (`attend_coarse`) and `coarse_postprocess` ROI-aligns every
@@ -108,8 +108,10 @@ class PatchFusionNet(MetricBinsHead):
                          **head_kwargs(coarse, min_depth, max_depth))
         self.patch_process_shape = tuple(patch_process_shape)
         self.remat = remat
-        self.coarse_branch = make_zoe_branch(coarse, min_depth, max_depth)
-        self.fine_branch = make_zoe_branch(fine, min_depth, max_depth)
+        self.coarse_branch = make_zoe_branch(coarse, min_depth, max_depth,
+                                             self.patch_process_shape)
+        self.fine_branch = make_zoe_branch(fine, min_depth, max_depth,
+                                           self.patch_process_shape)
         c = branch_channels(fine)
         chans = [c] * 5 + [N_MIDAS_OUT]
         self.fusion_conv_list = nn.ModuleList(

@@ -1,12 +1,12 @@
-"""ZoeDepth metric-bins head and the DA-ZoeDepth model
+"""ZoeDepth metric-bins head and the DA-ZoeDepth and BEiT ZoeDepth models
 (patchfusion_tpu/models/zoedepth.py; reference external/zoedepth/models/
 zoedepth/zoedepth_v1.py with localbins_layers.py, attractor.py and
 dist_layers.py).
 
 `MetricBinsHead` holds the head's submodules as direct attributes, the way
-the reference's ZoeDepth and PatchFusion modules do, so `ZoeDepthDA` and
-`PatchFusionNet` inherit from it and their state_dict keys match the
-reference checkpoints. NCHW throughout.
+the reference's ZoeDepth and PatchFusion modules do, so `ZoeDepthDA`,
+`ZoeDepthBEiT` and `PatchFusionNet` inherit from it and their state_dict
+keys match the reference checkpoints. NCHW throughout.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from patchfusion_tpu_torch.models.beit import (MIDAS_FEATURES, PATCH,
+                                               MidasDPTBEiT)
 from patchfusion_tpu_torch.models.dpt import DPT_CONFIGS, DPTDinov2
 from patchfusion_tpu_torch.ops import fused_head
 from patchfusion_tpu_torch.ops.activations import Gelu, gelu
@@ -407,16 +409,71 @@ class ZoeDepthDA(MetricBinsHead):
         return out
 
 
+# MidasCore.output_channels for DPT_BEiT_L_384 (midas.py:368-376: 256 x 5)
+MIDAS_BTLNCK_CHANNELS = 256
+
+
+class MidasCore(nn.Module):
+    """Holds the MiDaS DPT-BEiT model under the reference's `core.core`
+    prefix."""
+
+    def __init__(self, core_type: str, grid: Tuple[int, int]):
+        super().__init__()
+        self.core = MidasDPTBEiT(core_type, grid)
+
+
+class ZoeDepthBEiT(MetricBinsHead):
+    """ZoeDepth v1 over MiDaS DPT_BEiT_L_384, the branch of the
+    `patchfusion_zoedepth` family (patchfusion_tpu/models/zoedepth.py:
+    549-608): the metric-bins head of ZoeDepthDA over the BEiT core, with
+    a 256-channel conv2 and the mean/std 0.5 normalization (reference
+    PrepForMidas, midas.py:180-181; do_resize=False in every shipped
+    config, so inputs arrive at the process shape). process_shape (H, W),
+    multiples of 32, sets the BEiT grid (H // 16, W // 16). forward as
+    ZoeDepthDA's."""
+
+    def __init__(self, core_type: str = "DPT_BEiT_L_384",
+                 min_depth: float = 1e-3, max_depth: float = 80.0,
+                 process_shape: Sequence[int] = (384, 512), **kw):
+        c = MIDAS_BTLNCK_CHANNELS
+        super().__init__(c, [c] * 4, **head_kwargs(kw, min_depth, max_depth))
+        ph, pw = process_shape
+        if ph % 32 or pw % 32:
+            raise ValueError(f"the BEiT branch takes multiples of 32, got "
+                             f"process shape {tuple(process_shape)}")
+        self.core = MidasCore(core_type, (ph // PATCH, pw // PATCH))
+        self.conv2 = nn.Conv2d(MIDAS_FEATURES, c, 1)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, Any]:
+        # in the input's dtype, like the JAX package (not the weights')
+        x = (x - 0.5) / 0.5
+        rel_depth, feats = self.core.core(x)
+        x_blocks = [feats["r4"], feats["r3"], feats["r2"], feats["r1"]]
+        last = feats["out_conv"]
+        x_d0 = self.conv2(feats["l4_rn"])
+        temp_features = {"x_d0": x_d0, "midas_final_feat": last}
+        for i, xb in enumerate(x_blocks):
+            temp_features[f"x_blocks_feat_{i}"] = xb
+        out = self.head_forward(x_d0, x_blocks, last, rel_depth[:, None])
+        out["rel_depth"] = rel_depth
+        out["temp_features"] = temp_features
+        return out
+
+
 def make_zoe_branch(kwargs: Dict[str, Any], min_depth: float,
-                    max_depth: float) -> ZoeDepthDA:
-    """Branch factory. Only the DA (DINOv2) family is ported; the BEiT
-    (`core_family="midas"`) branch raises."""
+                    max_depth: float,
+                    process_shape: Optional[Sequence[int]] = None
+                    ) -> nn.Module:
+    """Branch factory: `core_family` selects the DA (DINOv2) or the MiDaS
+    (BEiT) ZoeDepth (zoedepth_v1.py:300-305). process_shape: the BEiT
+    branch's input size, which fixes its relative-position grid (default
+    384x512); the DA branch takes any multiple of 14."""
     kw = dict(kwargs)
     family = kw.pop("core_family", "da")
-    if family != "da":
-        raise NotImplementedError(
-            f"core_family {family!r} (the BEiT ZoeDepth branch) is not "
-            "ported yet")
+    if family == "midas":
+        return ZoeDepthBEiT(min_depth=min_depth, max_depth=max_depth,
+                            process_shape=tuple(process_shape or (384, 512)),
+                            **kw)
     return ZoeDepthDA(min_depth=min_depth, max_depth=max_depth, **kw)
 
 
@@ -424,5 +481,5 @@ def branch_channels(kwargs: Dict[str, Any]) -> int:
     """Feature-pyramid channel count of a branch config (the `C` of the six
     fusion convs, reference patchfusion.py:119-127)."""
     if kwargs.get("core_family", "da") == "midas":
-        raise NotImplementedError("the BEiT branch is not ported yet")
+        return MIDAS_BTLNCK_CHANNELS
     return DA_OUTPUT_CHANNELS[kwargs.get("core_type", "vitl")]

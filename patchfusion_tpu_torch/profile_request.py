@@ -1,9 +1,10 @@
 """Where one warm request's device time goes, on one CUDA card.
 
     python -m patchfusion_tpu_torch.profile_request [--mode m1] [--out F]
+        [--config configs/patchfusion_zoedepth/zoedepth_patchfusion_u4k.py]
 
-Builds DA-vitl PatchFusion at full width (the config chip_smoke.py runs,
-bf16, seeded random weights), answers one warm-up request on a seeded
+Builds PatchFusion at full width from --config (default DA-vitl, the
+config chip_smoke.py runs first; bf16, seeded random weights), answers one warm-up request on a seeded
 2160x3840 image, then profiles one request with torch.profiler for each
 attention implementation (PF_ATTN_IMPL einsum, then pallas). For each it
 reports the wall time, the device busy time (the union of all kernel and
@@ -88,6 +89,7 @@ def profile(model, lr, hr, mode: str):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", default="m1")
+    ap.add_argument("--config", default=str(VITL_CONFIG))
     ap.add_argument("--out",
                     default=str(ROOT / "chiprun_out/profile_request.json"))
     args = ap.parse_args()
@@ -97,7 +99,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    cfg = Config.fromfile(str(VITL_CONFIG)).model.config.to_dict()
+    cfg = Config.fromfile(args.config).model.config.to_dict()
     model = PatchFusion.from_config(cfg, dtype=torch.bfloat16, seed=0)
     rng = np.random.default_rng(100)
     hr = rng.random((*model.tile_cfg.image_raw_shape, 3), dtype=np.float32)
@@ -105,7 +107,7 @@ def main() -> int:
         lr = interpolate(torch.from_numpy(hr)[None],
                          model.tile_cfg.patch_process_shape, mode="bilinear",
                          align_corners=True).numpy()
-    result = {"card": smi, "mode": args.mode}
+    result = {"card": smi, "mode": args.mode, "config": args.config}
     old = os.environ.get("PF_ATTN_IMPL")
     try:
         for impl in ("einsum", "pallas"):

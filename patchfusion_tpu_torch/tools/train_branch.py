@@ -5,8 +5,8 @@ configs):
     python -m patchfusion_tpu_torch.tools.train_branch CONFIG \
         [--work-dir DIR] [--seed 621] [--cfg-options key=value ...]
 
-Trains one DA-ZoeDepth branch of a BaselinePretrain config, target coarse
-on whole images or fine on random crops (reference
+Trains one ZoeDepth branch (DA or BEiT) of a BaselinePretrain config,
+target coarse on whole images or fine on random crops (reference
 baseline_pretrain.py:347-360), in float32, and writes its weights (the
 branch's full state dict) as the port's weights file
 (engine/checkpoint.save_params) every save_checkpoint_interval epochs and
@@ -59,8 +59,12 @@ def main(argv: Optional[List[str]] = None):
     target = mcfg["target"]
     branch_cfg = mcfg["coarse_branch" if target == "coarse"
                       else "fine_branch"].to_dict()
+    # the loader's network input size; it fixes a BEiT branch's grid
+    pps = cfg.train_dataloader["dataset"]["transform_cfg"][
+        "network_process_size"]
     branch = build_zoedepth_branch(branch_cfg, mcfg["min_depth"],
-                                   mcfg["max_depth"], device=device)
+                                   mcfg["max_depth"], device=device,
+                                   process_shape=tuple(pps))
     init_weights(branch, args.seed)
 
     loader = build_loader(cfg.train_dataloader, True, args.seed)

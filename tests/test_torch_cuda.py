@@ -91,6 +91,7 @@ def test_kernels_match_twins(cuda, dtype, layout):
     (1, 45, 70, 26, 40),     # upsample ~1.75, as the head's
     (4, 47, 61, 15, 20),     # upsample ~3.2
     (1, 392, 518, 224, 296),  # the head's shape
+    (4, 384, 512, 192, 256),  # the BEiT head's: a 2x upsample
 ])
 def test_clb_pt_matches_twin(cuda, dtype, layout, b, oh, ow, ih, iw):
     """clb_pt at output shapes that are not multiples of the bf16 kernel's
@@ -129,6 +130,7 @@ def _depth_inputs(b, oh, ow, ih, iw, k, dtype, dev, layout, seed):
 # (B, OH, OW, IH, IW, K)
 DEPTH_SHAPES = {
     "head_b1": (1, 392, 518, 224, 296, 64),
+    "beit_head_b4": (4, 384, 512, 192, 256, 64),
     "small": (2, 42, 56, 24, 30, 64),
     "k100": (2, 42, 56, 24, 30, 100),
     "k300": (2, 42, 56, 24, 30, 300),
@@ -166,14 +168,15 @@ def test_logbinomial_depth_matches_twin(cuda, shape, dtype, layout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 4])
-@pytest.mark.parametrize("shape", ["head", "steep_downsample"])
+@pytest.mark.parametrize("shape", ["head", "beit_head", "steep_downsample"])
 def test_logbinomial_depth_picks_its_kernel(cuda, shape, b):
-    """The head's shape (bf16, NCHW view, B = 1 and 4) takes the tiled
-    kernel; a 10x downsample of the centers the per-pixel one."""
-    dims = (b, *DEPTH_SHAPES["head_b1" if shape == "head"
-                             else "steep_downsample"][1:])
-    want = "logbinomial_depth" if shape == "head" \
-        else "logbinomial_depth_pixel"
+    """The DA and BEiT heads' shapes (bf16, NCHW view, B = 1 and 4) take
+    the tiled kernel; a 10x downsample of the centers the per-pixel one."""
+    dims = (b, *DEPTH_SHAPES[{"head": "head_b1", "beit_head": "beit_head_b4",
+                              "steep_downsample": "steep_downsample"}[shape]
+                             ][1:])
+    want = "logbinomial_depth_pixel" if shape == "steep_downsample" \
+        else "logbinomial_depth"
     p, t, centers = _depth_inputs(*dims, torch.bfloat16, cuda, "nchw-view",
                                   seed=b)
     before = dict(fused_head.LAUNCHES)

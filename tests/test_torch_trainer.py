@@ -26,8 +26,7 @@ from patchfusion_tpu.models.builder import \
 from patchfusion_tpu.models.losses import SILogLoss as JaxSILogLoss
 from patchfusion_tpu.models.patchfusion import PatchFusionNet as JaxNet
 from patchfusion_tpu_torch.api import PatchFusion
-from patchfusion_tpu_torch.convert.from_jax import (_vit_depth,
-                                                    zoedepth_state_dict)
+from patchfusion_tpu_torch.convert.from_jax import branch_state_dict
 from patchfusion_tpu_torch.data.loader import DataLoader
 from patchfusion_tpu_torch.engine import checkpoint, training
 from patchfusion_tpu_torch.engine.trainer import Trainer
@@ -150,12 +149,12 @@ def test_branch_step_matches_jax():
         return jax.value_and_grad(loss_of)(p)
 
     want_loss, jgrads = loss_and_grads(params)
-    jgrads = zoedepth_state_dict(jax.device_get(jgrads), _vit_depth(bcfg), "")
+    jgrads = branch_state_dict(jax.device_get(jgrads), cfg)
 
     branch = build_zoedepth_branch(bcfg, MIN_D, MAX_D, device="cpu")
     branch.load_state_dict({
-        k: torch.from_numpy(np.array(v)) for k, v in zoedepth_state_dict(
-            jax.device_get(params), _vit_depth(bcfg), "").items()})
+        k: torch.from_numpy(np.array(v)) for k, v in branch_state_dict(
+            jax.device_get(params), cfg).items()})
     state = training.create_branch_state(
         branch, training.make_onecycle_optimizer(1e-4, 10))
     tb = training.to_device_batch({**batch, "depth_gt": depth_gt}, "cpu",

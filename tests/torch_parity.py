@@ -41,6 +41,55 @@ def tiny_jax(seed: int = 0):
     return cfg, net, tile_cfg, var
 
 
+def redraw_beit(var, seed: int):
+    """The variables with every leaf drawn from numpy so that each term of
+    a BEiT branch counts: `_init_variables` leaves the BEiT qkv kernel and
+    the LayerScale gammas at 0 (its name rule) and the cls token at 1e-6,
+    which would hide an attention error below every tolerance. Kernels
+    LeCun (the qkv kernel too), gamma_1 / gamma_2 ~ U(0.5, 1.5), the q and
+    v biases, the relative-position tables and the cls token ~ N(0, 0.5),
+    other biases ~ N(0, 0.1), norm scales 1 + N(0, 0.1), BN statistics
+    as tiny_jax draws them."""
+    rng = np.random.default_rng(seed)
+
+    def redraw(path, x):
+        name = str(getattr(path[-1], "key", path[-1]))
+        shape, dt = x.shape, x.dtype
+        if name in ("kernel", "qkv_kernel"):
+            fan_in = int(np.prod(shape[:-1]))
+            v = np.clip(rng.standard_normal(shape), -2, 2) / np.sqrt(fan_in)
+        elif name in ("gamma_1", "gamma_2"):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif name in ("q_bias", "v_bias", "relative_position_bias_table",
+                      "cls_token"):
+            v = 0.5 * rng.standard_normal(shape)
+        elif name == "bias":
+            v = 0.1 * rng.standard_normal(shape)
+        elif name == "scale":
+            v = 1 + 0.1 * rng.standard_normal(shape)
+        elif name == "var":
+            v = 1 + 0.5 * rng.random(shape)
+        elif name == "mean":
+            v = 0.1 * rng.standard_normal(shape)
+        else:
+            v = x
+        return np.asarray(v, dt)
+
+    return jax.tree_util.tree_map_with_path(redraw, var)
+
+
+def toy_zoe_jax(seed: int = 0):
+    """(config, JAX net, tile config, variables) for the toy zoedepth
+    config of tests/test_beit.py (BEiT_tiny, 64x96 tiles of 128x192), every
+    leaf drawn by redraw_beit."""
+    from .test_beit import toy_zoe_config
+
+    cfg = toy_zoe_config()
+    net, tile_cfg = jax_build(cfg)
+    var = jax.device_get(_init_variables(net, tile_cfg, seed))
+    return cfg, net, tile_cfg, redraw_beit(var, seed + 1)
+
+
 def port_net(cfg, var, dtype=torch.float32):
     """The port's PatchFusionNet with the JAX variables, loaded strictly."""
     net, tile_cfg = build_patchfusion(cfg, device="cpu")
