@@ -96,11 +96,31 @@
    time; (e) two fusion-stage steps at batch 4 with --amp on one fixed
    batch: finite losses, 3 + 3 head launches a step, the step time on the
    device's clock and the peak.
-11. Prints one JSON line with the kernels' launches (the main path's, and
-   for the head kernels the eval phase's, the training steps' and the
-   BEiT path's with their BEiT-shape rows), errors, times (the head
-   kernels' recompute backward too) and bounds, then
-   {"ok": true, "device": {...}} as the last line.
+11. Scale-out over torch.distributed (phase `dist`; child processes of
+   this script, `--dist-child PART DIR`, with torchrun's variables, each
+   with a time limit that kills them all): (a) one rank over nccl at
+   world 1: the tiny config's m1 through the tile split on cuda:0
+   bitwise equal to the engine without it, and one fusion step; against
+   this process's DA-vitl bf16 reference (three m1 and two m2 requests,
+   the Tester over 3 synthetic 4K scenes, one --amp fusion step at batch
+   4), two ranks over gloo, both on cuda:0: (b) m1 and m2 with each
+   image's tiles split over the ranks, m1 bitwise equal to one process's
+   depth and m2 within 5e-3 of its max, each rank's head launches per
+   request (5 / 15 each: its share of the chunks and the repeated coarse
+   head); (c) one --amp
+   step at batch 2 per rank, its loss within 1e-3 of one process's at
+   batch 4 (which also prints the two halves' SILog, the losses a
+   per-rank reduction would give, and fails unless they miss the limit), the averaged gradients' and the updates' cosine with one
+   process's; (d) the Tester with the ranks
+   sharding the scenes, its gathered metrics within 1e-4 of one
+   process's; walls, step times on CUDA events and peaks per rank. Two
+   ranks on one card show the collectives, not a speed-up.
+12. Prints one JSON line with the kernels' launches (the main path's, and
+   for the head kernels the eval phase's, the training steps', the
+   2-rank tile split's per rank and the BEiT path's with their
+   BEiT-shape rows), errors, times (the head kernels' recompute backward
+   too) and bounds, then {"ok": true, "device": {...}} as the last
+   line.
 
 Any failed check raises, so the script exits non-zero without the last line.
 It needs one CUDA card and nothing but this repository.
@@ -2012,17 +2032,433 @@ def phase_beit():
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase dist: scale-out over torch.distributed (parallel/, the tile split,
+# data-parallel training, the metrics gather)
+# ---------------------------------------------------------------------------
+
+# the 2-rank tile split against one process's depth on the same seeded
+# model and image, relative to max |depth|: every tile runs the same
+# arithmetic. m1's 9 tiles split 5 + 4, so each rank's chunks of 4 are
+# one process's chunks and m1 is held bitwise; m2's rank 1 groups other
+# tiles in its chunks, which cuDNN and cuBLAS may serve with other
+# algorithms (1.12e-3 read on the H100)
+DIST_M2_TOL = 5e-3
+# the 2-rank Tester's metrics against one process's, relative: the same
+# per-image depth, gathered in sample order
+DIST_METRIC_TOL = 1e-4
+# the 2-rank --amp step (batch 2 per rank) against one process's at batch
+# 4 on the same samples: the loss, relative (5.6e-5 read on the H100; a
+# per-rank SILog misses it by 5e-2), and the cosine of the averaged
+# gradients (0.987 read) and of the weight updates (0.950 read; Adam's
+# first update is ~lr times each gradient's sign, so a bf16 difference in
+# a small component flips it)
+DIST_LOSS_TOL = 1e-3
+DIST_GRAD_COS = 0.98
+DIST_UPDATE_COS = 0.8
+DIST_SCENES = 3  # uneven over 2 ranks: 2 + 1 and the sampler's pad
+DIST_CHILD_TIMEOUT = {"nccl1": 300, "gloo2": 600}
+
+
+def _dist_launch(part: str, world: int, tmp: Path):
+    """`world` processes of `chip_smoke.py --dist-child part` with
+    torchrun's variables; returns them."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                   MASTER_PORT=port, PF_ATTN_IMPL="einsum")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-child",
+             part, str(tmp)], env=env, cwd=str(ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def _dist_join(part: str, procs, tmp: Path):
+    """Waits for every child within its part's limit (killing all of them
+    on expiry), prints their output, fails on any failure; returns each
+    rank's JSON result."""
+    deadline = time.monotonic() + DIST_CHILD_TIMEOUT[part]
+    failed = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r} timed out")
+                break
+            for line in out.splitlines():
+                say(f"  [{part} rank {r}] {line}")
+            for line in err.splitlines()[-40:]:
+                say(f"  [{part} rank {r} stderr] {line}")
+            if p.returncode != 0:
+                failed.append(f"rank {r} exited {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check(not failed, f"dist {part}: " + "; ".join(failed))
+    return [json.loads((tmp / f"{part}-{r}.json").read_text())
+            for r in range(len(procs))]
+
+
+def _dist_batch(n: int = 4, shape=(392, 518), seed: int = 11):
+    """A synthetic fusion-stage batch (vitl's 392x518 crops by default;
+    boxes of 540x960 in the 3840x2160 frame), some depths invalid. Its
+    second half (the second rank's share in phase dist) is darker and
+    nearer, so that a reduction over one rank's share gives other
+    statistics than the batch's."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    depth = rng.random((n, h, w, 1), dtype=np.float32) * 40 + 1
+    depth[0, :h // 4] = 0.0
+    depth[n // 2:] /= 8
+    images = rng.random((2, n, h, w, 3), dtype=np.float32)
+    images[:, n // 2:] *= 0.25
+    boxes = np.array([[0, 0, 960, 540], [960, 540, 1920, 1080],
+                      [2880, 0, 3840, 540], [1920, 1620, 2880, 2160]],
+                     np.float32)[:n]
+    return {"image_lr": images[0], "crops_image_hr": images[1],
+            "crop_depths": depth, "bboxs": boxes}
+
+
+def _flat_trainable(state, grads: bool = False):
+    import torch
+
+    return torch.cat([(p.grad if grads else p.detach()).float().reshape(-1)
+                      for p in state.trainable.values()])
+
+
+def _dist_step(state, batch, loss_fn=None):
+    """One fusion step timed on CUDA events: (logs, seconds)."""
+    import torch
+    from patchfusion_tpu_torch.engine import training
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    logs = training.make_train_step(loss_fn)(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    return logs, start.elapsed_time(end) / 1e3
+
+
+def _dist_reference(tmp: Path):
+    """One process's side of phase dist: the seeded vitl model's m1 (seed
+    0) and m2 (seed 3) requests (the depth written to tmp/ref_*.npy), the
+    Tester's metrics over the 3-scene split, and one --amp fusion step at
+    batch 4 (its gradients and update saved for the ranks), beside its
+    two halves' SILog (what each rank would reduce alone)."""
+    import torch
+    from patchfusion_tpu_torch.data import u4k
+    from patchfusion_tpu_torch.data.loader import DataLoader
+    from patchfusion_tpu_torch.engine.tester import Tester
+    from patchfusion_tpu_torch.engine.training import to_device_batch
+    from patchfusion_tpu_torch.models.losses import SILogLoss
+
+    split = write_u4k_split(tmp / "u4k", DIST_SCENES, RAW_SHAPE, seed=5)
+    model = build_vitl()
+    out = {"n_tiles": _tiles(model.tile_cfg),
+           "requests": _requests(model, None, tmp, "ref")}
+    ds = u4k.UnrealStereo4kDataset(
+        mode="infer", data_root=str(tmp / "u4k"), split=split,
+        min_depth=1e-3, max_depth=80, resize_mode="depth-anything",
+        transform_cfg=dict(network_process_size=[392, 518]))
+    with attn_impl("einsum"):
+        out["tester"] = Tester(model.engine(PROCESS_NUM),
+                               DataLoader(ds, num_workers=2)).run("m1")
+    del model
+    torch.cuda.empty_cache()
+    batch = _dist_batch()
+    np.savez(tmp / "batch.npz", **batch)
+    state = _vitl_state()
+    before = _flat_trainable(state).cpu()
+    sig, halves = SILogLoss(), []
+
+    def loss_fn(pred, target, lo, hi, global_batch):
+        halves.extend(sig(pred[i:i + 2].detach(), target[i:i + 2], lo, hi)
+                      for i in (0, 2))
+        return sig(pred, target, lo, hi, global_batch=global_batch)
+
+    logs, secs = _dist_step(state, to_device_batch(batch, "cuda",
+                                                   batch.keys()), loss_fn)
+    out["per_rank_loss"] = [float(x) for x in halves]
+    torch.save({"grad": _flat_trainable(state, grads=True).cpu(),
+                "update": _flat_trainable(state).cpu() - before},
+               tmp / "step_ref.pt")
+    out["loss"] = float(logs["total_loss"])
+    out["step_s"] = secs
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cos(a, b) -> float:
+    return float((a.double() @ b.double())
+                 / (a.double().norm() * b.double().norm()))
+
+
+def dist_child(part: str, tmp: Path) -> None:
+    """One rank of phase dist (torchrun's variables in its environment);
+    writes its figures to tmp/<part>-<rank>.json."""
+    import torch
+    from patchfusion_tpu_torch.parallel import dist
+
+    if part == "gloo2":
+        dist.init_distributed(device="cuda", backend="gloo")
+        out = _dist_ranks(tmp)
+    else:
+        dist.init_distributed(device="cuda")
+        check(torch.distributed.get_backend() == "nccl",
+              f"{part}: not on nccl")
+        out = _dist_nccl1()
+    out.update(rank=dist.rank(), world=dist.world_size(),
+               backend=torch.distributed.get_backend(),
+               device=str(torch.cuda.current_device()))
+    (tmp / f"{part}-{dist.rank()}.json").write_text(
+        json.dumps(out, default=float))
+    dist.barrier()
+    dist.shutdown()
+
+
+def _dist_nccl1() -> dict:
+    """(a) at world 1 over nccl: the tiny config's m1 with the tile split
+    on cuda:0 bitwise equal to the engine without it; one fusion step."""
+    import torch
+    from patchfusion_tpu_torch.api import PatchFusion
+    from patchfusion_tpu_torch.engine import training
+    from patchfusion_tpu_torch.parallel import dist
+
+    device = dist.device_for_rank("cuda")
+    model = PatchFusion.from_config(tiny_config(), device=device,
+                                    dtype=torch.bfloat16, seed=1)
+    rng = np.random.default_rng(7)
+    hr = rng.random((84, 112, 3), dtype=np.float32)
+    lr = rng.random((1, 42, 56, 3), dtype=np.float32)
+    plain = model.infer(lr, hr, cai_mode="m1", process_num=2)
+    split = model.infer(lr, hr, cai_mode="m1", process_num=2,
+                        mesh=dist.make_patch_mesh())
+    check(np.array_equal(plain, split),
+          "nccl1: the tile split at world 1 differs from the engine")
+    net = PatchFusion.from_config(tiny_config(), device=device, seed=1).net
+    state = training.create_train_state(
+        net, training.make_onecycle_optimizer(1e-4, 10))
+    b = _dist_batch(2, (42, 56))
+    loss = float(training.make_train_step()(
+        state, training.to_device_batch(b, device, b.keys()))["total_loss"])
+    check(math.isfinite(loss), f"nccl1: loss {loss}")
+    say(f"nccl1: tile-split m1 bitwise equal at world 1, step loss {loss}")
+    return {"bitwise": True, "loss": loss}
+
+
+def _dist_ranks(tmp: Path) -> dict:
+    """One rank of (b) the tile split of vitl m1 and m2, (d) the Tester
+    sharding 3 scenes, (c) one --amp fusion step on this rank's share of
+    the batch of 4; on this rank's card (cuda:0 for every gloo rank of
+    phase dist)."""
+    import torch
+    from patchfusion_tpu_torch.data import u4k
+    from patchfusion_tpu_torch.data.loader import DataLoader, ShardedSampler
+    from patchfusion_tpu_torch.engine.tester import Tester
+    from patchfusion_tpu_torch.engine.training import to_device_batch
+    from patchfusion_tpu_torch.parallel import dist
+
+    r, world = dist.rank(), dist.world_size()
+    dist.device_for_rank("cuda")
+    model = build_vitl()
+    out = {"requests": _requests(model, dist.make_patch_mesh(), tmp,
+                                 "dist" if r == 0 else None)}
+    out["infer_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ds = u4k.UnrealStereo4kDataset(
+        mode="infer", data_root=str(tmp / "u4k"),
+        split=str(tmp / "u4k" / "val.txt"), min_depth=1e-3, max_depth=80,
+        resize_mode="depth-anything",
+        transform_cfg=dict(network_process_size=[392, 518]))
+    tester = Tester(model.engine(PROCESS_NUM), DataLoader(
+        ds, num_workers=2, sampler=ShardedSampler(len(ds), world, r)))
+    out["tester"] = tester.run("m1")
+    out["tester_images"] = len(tester.image_seconds)
+    del model, tester
+    torch.cuda.empty_cache()
+
+    data = np.load(tmp / "batch.npz")
+    per = len(data["bboxs"]) // world
+    share = {k: data[k][r * per:(r + 1) * per] for k in data.files}
+    state = _vitl_state()
+    torch.cuda.reset_peak_memory_stats()
+    batch = to_device_batch(share, "cuda", share.keys())
+    before = _flat_trainable(state)
+    logs, secs = _dist_step(state, batch)
+    grad = _flat_trainable(state, grads=True)
+    update = _flat_trainable(state) - before
+    ref = torch.load(tmp / "step_ref.pt")
+    out["step"] = {
+        "batch": per, "loss": float(logs["total_loss"]), "first_s": secs,
+        "grad_cos": _cos(grad.cpu(), ref["grad"]),
+        "update_cos": _cos(update.cpu(), ref["update"])}
+    del before, grad, update, ref
+    _, out["step"]["warm_s"] = _dist_step(state, batch)
+    out["step"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _requests(model, mesh, tmp: Path, prefix=None) -> dict:
+    """Three m1 (seed 0) and two m2 (seed 3) requests: each one's wall on
+    the host's clock, the last one's head launches; with a `prefix` the
+    last depth of each mode written to tmp/<prefix>_<mode>.npy."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    with attn_impl("einsum"):
+        for mode, seed, reps in (("m1", 0, 3), ("m2", 3, 2)):
+            lr, hr = _images(model, seed)
+            walls = []
+            for _ in range(reps):
+                reset_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                depth = model.infer(lr, hr, cai_mode=mode,
+                                    process_num=PROCESS_NUM, mesh=mesh)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+            launches = counts()
+            if prefix:
+                np.save(tmp / f"{prefix}_{mode}.npy", depth)
+            out[mode] = {"wall_ms": walls, "launches": {
+                n: launches[n] for n in ("clb_pt", "logbinomial_depth",
+                                         "logbinomial_depth_pixel")}}
+    return out
+
+
+def _dist_report(ref: dict, ranks: list, tmp: Path) -> dict:
+    """Holds the ranks' (b)-(d) against this process's reference and
+    prints their figures."""
+    world = len(ranks)
+    out = {"reference": {k: ref[k] for k in (
+        "tester", "loss", "per_rank_loss", "step_s", "requests")},
+        "ranks": []}
+    n_tiles = ref["n_tiles"]
+    for mode in ("m1", "m2"):
+        got = np.load(tmp / f"dist_{mode}.npy")
+        want = np.load(tmp / f"ref_{mode}.npy")
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        tol = 0.0 if mode == "m1" else DIST_M2_TOL
+        say(f"dist (b): vitl {mode} split over {world} ranks vs one "
+            f"process: max|diff|/max|depth| = {rel:.3g} (tolerance {tol})")
+        check(rel <= tol, f"dist {mode} differs by {rel:.3g}")
+        out[f"{mode}_rel"] = rel
+        heads = _want(-(-n_tiles[mode] // world))
+        for rk in ranks:
+            got_l = rk["requests"][mode]["launches"]
+            for name in got_l:
+                check(got_l[name] == heads[name],
+                      f"dist {mode} rank {rk['rank']}: {name} launched "
+                      f"{got_l[name]} times, expected {heads[name]}")
+    for k, v in ref["tester"].items():
+        for rk in ranks:
+            got = rk["tester"][k]
+            check(abs(got - v) <= DIST_METRIC_TOL * abs(v) + 1e-7,
+                  f"dist (d): {k} {got} against {v}")
+    say(f"dist (d): Tester over {DIST_SCENES} scenes sharded "
+        f"{[rk['tester_images'] for rk in ranks]}: metrics within "
+        f"{DIST_METRIC_TOL} of one process's "
+        + json.dumps({k: round(v, 4) for k, v in ref["tester"].items()}))
+    one = ref["requests"]
+    say(f"dist one process: m1 wall "
+        f"{[round(x, 1) for x in one['m1']['wall_ms']]} ms, m2 "
+        f"{[round(x, 1) for x in one['m2']['wall_ms']]} ms; --amp step at "
+        f"batch 4 {ref['step_s']:.3f} s (first), loss {ref['loss']:.6f}")
+    naive = min(abs(x - ref["loss"]) for x in ref["per_rank_loss"]) \
+        / ref["loss"]
+    say(f"dist (c): the halves' SILog {ref['per_rank_loss']}, at least "
+        f"{naive:.3g} from the batch's {ref['loss']:.6f} (the loss "
+        f"tolerance {DIST_LOSS_TOL} tells a per-rank reduction apart)")
+    check(naive > DIST_LOSS_TOL, "dist (c): a per-rank SILog would pass "
+          f"the loss tolerance ({naive:.3g})")
+    for rk in ranks:
+        st = rk["step"]
+        rel = abs(st["loss"] - ref["loss"]) / ref["loss"]
+        check(rel <= DIST_LOSS_TOL, f"dist (c) rank {rk['rank']}: loss "
+              f"{st['loss']} against {ref['loss']} ({rel:.3g})")
+        check(st["grad_cos"] >= DIST_GRAD_COS
+              and st["update_cos"] >= DIST_UPDATE_COS,
+              f"dist (c) rank {rk['rank']}: {st}")
+        reqs = rk["requests"]
+        say(f"dist rank {rk['rank']} ({rk['backend']}, cuda:"
+            f"{rk['device']}): m1 wall "
+            f"{[round(x, 1) for x in reqs['m1']['wall_ms']]} ms, m2 "
+            f"{[round(x, 1) for x in reqs['m2']['wall_ms']]} ms (the "
+            f"first of each cold), head launches per request m1 "
+            f"{reqs['m1']['launches']['clb_pt']} + "
+            f"{reqs['m1']['launches']['logbinomial_depth']}, m2 "
+            f"{reqs['m2']['launches']['clb_pt']} + "
+            f"{reqs['m2']['launches']['logbinomial_depth']} (one process: "
+            f"{one['m1']['launches']['clb_pt']} + "
+            f"{one['m1']['launches']['logbinomial_depth']}, "
+            f"{one['m2']['launches']['clb_pt']} + "
+            f"{one['m2']['launches']['logbinomial_depth']}); inference "
+            f"peak {rk['infer_peak_gib']:.2f} GiB; --amp step at batch "
+            f"{st['batch']}: loss {st['loss']:.6f}, gradient cosine "
+            f"{st['grad_cos']:.6f}, update cosine {st['update_cos']:.6f}, "
+            f"first {st['first_s']:.3f} s, warm {st['warm_s']:.3f} s on "
+            f"CUDA events, peak {st['peak_gib']:.2f} GiB")
+        out["ranks"].append({k: rk[k] for k in (
+            "rank", "backend", "requests", "infer_peak_gib", "step",
+            "tester_images")})
+    return out
+
+
+def phase_dist() -> dict:
+    """Step 11: scale-out. (a) a child at world 1 over nccl (torchrun's
+    variables); (b)-(d) two ranks over gloo on cuda:0 against this
+    process's reference: vitl tile split, one --amp step, Tester."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="pf_dist_") as name:
+        tmp = Path(name)
+        nccl = _dist_launch("nccl1", 1, tmp)
+        ref = _dist_reference(tmp)
+        (a,) = _dist_join("nccl1", nccl, tmp)
+        check(a["backend"] == "nccl" and a["bitwise"], f"dist (a): {a}")
+        ranks = _dist_join("gloo2", _dist_launch("gloo2", 2, tmp), tmp)
+        out = {"nccl1": a, **_dist_report(ref, ranks, tmp)}
+    say("dist (b)/(c): the two ranks share one card, so their walls and "
+        "peaks show the collectives and each rank's share, not a speed-up")
+    out["seconds"] = time.perf_counter() - t0
+    say(f"phase dist: {out['seconds']:.1f} s")
+    say("dist summary: " + json.dumps(out, default=float))
+    return out
+
+
 def main(argv) -> int:
     root = ROOT
+    child = argv[:1] == ["--dist-child"] and len(argv) == 3
     if argv[:1] == ["--time-only"] and len(argv) == 2:
         root = Path(argv[1]).resolve()
-    elif argv:
+    elif argv and not child:
         raise SystemExit("usage: chip_smoke.py [--time-only DIR]")
     if not (root / "patchfusion_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py needs the repository around it "
                          f"(patchfusion_tpu_torch/ not found in {root})")
     sys.path.insert(0, str(root))
     import torch
+
+    if child:
+        dist_child(argv[1], Path(argv[2]))
+        return 0
 
     t0 = time.perf_counter()
     phase_card()
@@ -2044,6 +2480,8 @@ def main(argv) -> int:
     phase_tiny()
     tr = phase_train()
     beit_launches, _ = phase_beit()
+    torch.cuda.empty_cache()
+    dist_out = phase_dist()
     launches = {"clb_pt": main_launches["clb_pt"],
                 "logbinomial_depth": main_launches["logbinomial_depth"],
                 "vit_attention": pallas_launches["vit_attention"],
@@ -2067,6 +2505,12 @@ def main(argv) -> int:
                         **({"launches_eval": ev["launches"][name],
                             "launches_train":
                                 tr["fusion"]["launches"][name]}
+                           if name in ("clb_pt", "logbinomial_depth")
+                           else {}),
+                        **({"launches_dist": {
+                            mode: [rk["requests"][mode]["launches"][name]
+                                   for rk in dist_out["ranks"]]
+                            for mode in ("m1", "m2")}}
                            if name in ("clb_pt", "logbinomial_depth")
                            else {}),
                         **({"launches_beit": beit_launches[name],

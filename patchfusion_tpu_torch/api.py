@@ -39,6 +39,7 @@ from patchfusion_tpu_torch.models.builder import (build_patchfusion,
                                                   check_device)
 from patchfusion_tpu_torch.models.patchfusion import FEATURE_KEYS, TileConfig
 from patchfusion_tpu_torch.ops.resize import NetResizer
+from patchfusion_tpu_torch.parallel.dist import PatchMesh
 
 _NORMAL_002 = ("pos_embed", "absolute_pos_embed",
                "relative_position_bias_table")
@@ -186,30 +187,36 @@ class PatchFusion:
         self._engines.clear()
 
     def engine(self, process_num: Optional[int] = None,
-               tile_cfg: Optional[TileConfig] = None
-               ) -> PatchFusionInference:
+               tile_cfg: Optional[TileConfig] = None,
+               mesh: Optional[PatchMesh] = None) -> PatchFusionInference:
+        """mesh: split each image's tiles across the ranks of a
+        parallel.dist.PatchMesh (make_patch_mesh()), the JAX package's
+        `patch` mesh; every rank then passes the same image."""
         pn = process_num or self.default_process_num
         tc = tile_cfg or self.tile_cfg
-        key = (pn, tc)
+        key = (pn, tc, mesh)
         if key not in self._engines:
             self._engines[key] = PatchFusionInference(self.net, tc,
-                                                      process_num=pn)
+                                                      process_num=pn,
+                                                      mesh=mesh)
         return self._engines[key]
 
     def infer(self, image_lr: np.ndarray, image_hr: np.ndarray,
               cai_mode: str = "m1", process_num: Optional[int] = None,
               image_raw_shape=None, patch_split_num=None,
               rng: Optional[np.random.Generator] = None,
-              rand_origins: Optional[np.ndarray] = None) -> np.ndarray:
+              rand_origins: Optional[np.ndarray] = None,
+              mesh: Optional[PatchMesh] = None) -> np.ndarray:
         """image_lr (1, h, w, 3) NHWC in [0, 1]; image_hr (H, W, 3).
-        Returns depth (H', W') as a float32 numpy array."""
+        Returns depth (H', W') as a float32 numpy array. mesh: as
+        engine()."""
         tc = self.tile_cfg
         if image_raw_shape is not None or patch_split_num is not None:
             tc = TileConfig(
                 tuple(image_raw_shape or tc.image_raw_shape),
                 tuple(patch_split_num or tc.patch_split_num),
                 tc.patch_process_shape)
-        depth = self.engine(process_num, tc).infer(
+        depth = self.engine(process_num, tc, mesh).infer(
             image_lr, image_hr, cai_mode=cai_mode, rng=rng,
             rand_origins=rand_origins)
         return depth.cpu().numpy()
@@ -260,12 +267,14 @@ class BaselinePretrain:
                  image_raw_shape=(2160, 3840), patch_split_num=(4, 4),
                  patch_process_shape=(384, 512), device="cuda",
                  dtype: torch.dtype = torch.float32, seed: int = 0,
-                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 mesh: Optional[PatchMesh] = None):
         """Seeded random weights, or `state_dict` (a branch's, loaded
         strictly on the CPU before the branch is moved and cast; a BEiT
         branch's tables fitted to its grid). On the card unless the caller
         passes device="cpu". patch_process_shape is the branch's input
-        size, which fixes a BEiT branch's grid."""
+        size, which fixes a BEiT branch's grid. mesh: the fine target's
+        tile split (PatchFusion.engine)."""
         if target not in ("coarse", "fine"):
             raise ValueError(f"target must be 'coarse' or 'fine', not "
                              f"{target!r}")
@@ -285,6 +294,7 @@ class BaselinePretrain:
                                    tuple(patch_split_num),
                                    tuple(patch_process_shape))
         self.resizer = _resizer(branch_cfg, patch_process_shape)
+        self.mesh = mesh
         self._fine_engines: Dict[int, PatchFusionInference] = {}
 
     @classmethod
@@ -301,7 +311,7 @@ class BaselinePretrain:
         if process_num not in self._fine_engines:
             self._fine_engines[process_num] = PatchFusionInference(
                 _FineOnly(self.net), self.tile_cfg, process_num=process_num,
-                rn_times_process_num=True, fusion=False)
+                rn_times_process_num=True, fusion=False, mesh=self.mesh)
         return self._fine_engines[process_num]
 
     @torch.no_grad()

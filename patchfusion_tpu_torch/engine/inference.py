@@ -12,13 +12,24 @@ half-tile-shifted passes, rN adds N random tiles blended at raw resolution.
 With fusion=False (the BaselinePretrain fine target) the tiles run through
 the fine branch alone and the coarse pass and G2L are skipped.
 
+With a `mesh` (parallel/dist.PatchMesh, the JAX package's `patch` mesh over
+ranks, one device each) every rank runs the coarse pass and G2L, takes one
+contiguous share of each tile stream (padded to a multiple of the ranks by
+repeating the last tile; the duplicates are dropped) and pastes its tiles
+alone; the ranks then sum their canvases, and the average updates as in
+one process, since it composes additively (ops/stitch.py). rN draws its
+random tiles in groups of the mesh's size, as the JAX mesh engine does.
+Unlike the JAX mesh engine, a rank keeps `process_num` chunking inside its
+share: on one card the chunk bounds memory, where on a TPU the shard is
+the chunk.
+
 Images come in the JAX package's layout (NHWC, float in [0, 1]); tensors
 inside are NCHW on the model's device.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +38,8 @@ from patchfusion_tpu_torch.models.patchfusion import PatchFusionNet, TileConfig
 from patchfusion_tpu_torch.ops.masks import blend_mask
 from patchfusion_tpu_torch.ops.resize import interpolate, interpolate_nchw
 from patchfusion_tpu_torch.ops.stitch import AvgMap, paste_dynamic, paste_grid
+from patchfusion_tpu_torch.parallel.dist import (PatchMesh, all_reduce_,
+                                                 broadcast_object)
 
 
 def crop_resize_tiles(image_hr: torch.Tensor, origins: np.ndarray,
@@ -69,14 +82,20 @@ class PatchFusionInference:
 
     def __init__(self, net: PatchFusionNet, tile_cfg: TileConfig,
                  process_num: Optional[int] = 4,
-                 rn_times_process_num: bool = False, fusion: bool = True):
+                 rn_times_process_num: bool = False, fusion: bool = True,
+                 mesh: Optional[PatchMesh] = None):
         """fusion=False: fine-branch depth per tile, no coarse pass; `net`
-        then needs only `fine_forward`, `dtype` and `device`."""
+        then needs only `fine_forward`, `dtype` and `device`. mesh: split
+        every pass's tiles across mesh.size ranks (module docstring)."""
         self.net = net
         self.tile_cfg = tile_cfg
         self.process_num = process_num
         self.rn_times_process_num = rn_times_process_num
         self.fusion = fusion
+        self.mesh = mesh
+        # rN tiles are drawn in groups of this size: process_num in one
+        # process, the mesh's size under a mesh (the JAX tile_group)
+        self.tile_group = mesh.size if mesh is not None else process_num
 
     @property
     def device(self) -> torch.device:
@@ -146,18 +165,26 @@ class PatchFusionInference:
         all_origins = np.concatenate([
             np.array([[y, x] for y in oh for x in ow], np.int64)
             for (oh, ow) in pass_grids])
-        tiles_all = self._tile_batch(image_hr, all_origins, coarse_ctx)
+        tiles_all, owned = self._shared_tiles(image_hr, all_origins,
+                                              coarse_ctx)
 
-        avg = None
+        canvases = []
         start = 0
         for (_, off_proc), n in zip(offsets, counts):
             poh, pow_ = tc.process_origins(off_proc)
             tiles = tiles_all[start:start + n]
+            weight = blur if owned is None else \
+                blur * owned[start:start + n, None, None]
             start += n
-            num = paste_grid(tiles * blur, poh, pow_,
-                             tc.patch_reensemble_shape)
-            den = paste_grid(blur.expand(tiles.shape), poh, pow_,
-                             tc.patch_reensemble_shape)
+            canvases.append((
+                paste_grid(tiles * blur, poh, pow_,
+                           tc.patch_reensemble_shape),
+                paste_grid(weight.expand(tiles.shape), poh, pow_,
+                           tc.patch_reensemble_shape)))
+        if owned is not None:
+            canvases = self._sum_canvases(canvases)
+        avg = None
+        for num, den in canvases:
             avg = AvgMap.init(num, den) if avg is None \
                 else avg.update(num, den)
 
@@ -165,6 +192,9 @@ class PatchFusionInference:
             avg = avg.resize(tc.image_raw_shape)
             blur_raw = torch.from_numpy(
                 blend_mask(tc.patch_raw_shape)).to(dev)
+            if self.mesh is not None:
+                first, mine, _ = self._share(len(rand_origins))
+                rand_origins = rand_origins[first:first + mine]
             group = self.process_num or 1
             num = torch.zeros(tc.image_raw_shape, device=dev)
             den = torch.zeros(tc.image_raw_shape, device=dev)
@@ -178,21 +208,66 @@ class PatchFusionInference:
                 num += paste_dynamic(tiles * blur_raw, g, tc.image_raw_shape)
                 den += paste_dynamic(blur_raw.expand(tiles.shape), g,
                                      tc.image_raw_shape)
+            if self.mesh is not None:
+                (num, den), = self._sum_canvases([(num, den)])
             avg = avg.update(num, den)
         return avg.average
 
     def _random_tiles(self, cai_mode: str, rng, rand_origins, n_images: int):
-        group = self.process_num or 1
+        group = self.tile_group or 1
         mode, n_random = _parse_mode(cai_mode, group,
                                      self.rn_times_process_num)
         if mode != "r":
             return mode, [np.zeros((0, 2), np.int64)] * n_images
         if rand_origins is not None:
             rand = np.asarray(rand_origins, np.int64)
-            return mode, list(rand.reshape(n_images, -1, 2))
-        rng = rng or np.random.default_rng(0)
-        return mode, [self.random_origins(n_random, rng).astype(np.int64)
-                      for _ in range(n_images)]
+            rand = list(rand.reshape(n_images, -1, 2))
+        else:
+            rng = rng or np.random.default_rng(0)
+            rand = [self.random_origins(n_random, rng).astype(np.int64)
+                    for _ in range(n_images)]
+        if self.mesh is not None:
+            # every rank pastes the same tiles: rank 0's origins
+            rand = broadcast_object(rand)
+        return mode, rand
+
+    # -- the tile split (mesh) -----------------------------------------------
+
+    def _share(self, n: int) -> Tuple[int, int, np.ndarray]:
+        """This rank's contiguous share of a stream of n tiles padded to a
+        multiple of the mesh's size by repeating the last tile: (its first
+        index, how many of its tiles are not padding, its indices into the
+        stream)."""
+        per = -(-n // self.mesh.size)
+        first = self.mesh.rank * per
+        idx = np.minimum(np.arange(first, first + per), n - 1)
+        return first, int(np.clip(n - first, 0, per)), idx
+
+    def _shared_tiles(self, image_hr: torch.Tensor, origins: np.ndarray,
+                      coarse_ctx):
+        """(depth (N, ph, pw), owned): every tile's depth in one process
+        (owned None); under a mesh, this rank's tiles at their places in
+        the stream and zeros elsewhere, and owned (N,) 1 at this rank's
+        tiles and 0 elsewhere."""
+        if self.mesh is None:
+            return self._tile_batch(image_hr, origins, coarse_ctx), None
+        n = len(origins)
+        first, mine, idx = self._share(n)
+        local = self._tile_batch(image_hr, origins[idx], coarse_ctx)
+        ph, pw = self.tile_cfg.patch_process_shape
+        tiles = local.new_zeros((n, ph, pw))
+        tiles[first:first + mine] = local[:mine]
+        owned = local.new_zeros(n)
+        owned[first:first + mine] = 1.0
+        return tiles, owned
+
+    def _sum_canvases(self, canvases):
+        """Each pass's (num, den) summed across the mesh, in one
+        all-reduce."""
+        stacked = torch.stack([c for pair in canvases for c in pair])
+        all_reduce_(stacked)
+        return [(stacked[2 * i], stacked[2 * i + 1])
+                for i in range(len(canvases))]
 
     def _to_device(self, image: np.ndarray) -> torch.Tensor:
         """NHWC numpy (or tensor) -> NCHW float32 tensor on the device."""
@@ -201,13 +276,57 @@ class PatchFusionInference:
 
     # -- public API ----------------------------------------------------------
 
+    def shard_report(self, cai_mode: str = "m1") -> Dict[str, Any]:
+        """Per-pass shard accounting for a mode under the current mesh, with
+        the JAX package's keys and arithmetic (engine/inference.py
+        shard_report): tiles per pass, the padding the split adds, the
+        tiles each rank runs, and the coarse pass that every rank
+        repeats."""
+        tc = self.tile_cfg
+        ndev = self.mesh.size if self.mesh is not None else 1
+        offsets = [(0, 0)]
+        if cai_mode == "m2" or cai_mode.startswith("r"):
+            prh, prw = tc.patch_raw_shape
+            offsets += [(0, prw // 2), (prh // 2, 0), (prh // 2, prw // 2)]
+        counts = []
+        for off in offsets:
+            oh, ow = tc.regular_origins(off)
+            counts.append(len(oh) * len(ow))
+        total = sum(counts)
+        padded = total + (-total) % ndev
+
+        n_rand = rand_padded = 0
+        if cai_mode.startswith("r"):
+            group = self.tile_group or 1
+            if self.rn_times_process_num:
+                n_rand = int(cai_mode[1:]) * group
+            else:
+                n_rand = (int(cai_mode[1:]) // group) * group
+            per_group = group + (-group) % ndev
+            rand_padded = (n_rand // group) * per_group
+
+        work = padded + rand_padded
+        useful = total + n_rand
+        return {
+            "devices": ndev,
+            "pass_tiles": counts,
+            "regular_tiles": total,
+            "regular_padded": padded,
+            "random_tiles": n_rand,
+            "random_padded": rand_padded,
+            "tiles_per_device": work // max(ndev, 1),
+            "padding_waste_frac": round(1.0 - useful / work, 4) if work
+            else 0.0,
+            "coarse_pass_replicas": ndev,
+        }
+
     def random_origins(self, n: int, rng: np.random.Generator) -> np.ndarray:
         """Random tile origins with the reference's distribution
-        (baseline_pretrain.py:155-156: per group of process_num tiles, an
+        (baseline_pretrain.py:155-156: per group of tile_group tiles, an
         independent h per tile but ONE shared w). Copied from the JAX
         package so the same rng gives the same draws."""
         tc = self.tile_cfg
-        pn = self.process_num or 1
+        pn = self.tile_group or 1
         n_groups = n // pn
         hs, ws = [], []
         for _ in range(n_groups):

@@ -3,10 +3,11 @@ estimator/tester/tester.py).
 
 Per image: tiled inference through the engine, optional colorized + uint16
 PNG dumps (tester.py:66-76), and the metrics against GT with SEE boundary
-edges. The reference gathers the metrics of several processes
-(tester.py:78-95); that belongs to the port's scale-out slice, so a run
-under torch.distributed with more than one process raises instead of
-reporting one rank's share as the whole.
+edges. Under torch.distributed the ranks either shard the samples (the
+loader's ShardedSampler; the metrics are gathered across the ranks,
+tester.py:78-95, parallel/gather.py) or all take every image and split its
+tiles (an engine with a `mesh`; nothing to gather). Only rank 0 logs the
+summary and writes the PNGs of a tile-split run.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import torch
 
 from patchfusion_tpu_torch.engine.inference import PatchFusionInference
 from patchfusion_tpu_torch.models.patchfusion import TileConfig
-from patchfusion_tpu_torch.utils.misc import setup_logger
+from patchfusion_tpu_torch.parallel.dist import is_main, rank, world_size
+from patchfusion_tpu_torch.parallel.gather import gather_metric_dicts
+from patchfusion_tpu_torch.utils.misc import rank_logger, setup_logger
 
 
 class Tester:
@@ -35,7 +38,7 @@ class Tester:
         self.work_dir = work_dir
         self.save = save
         self.gray_scale = gray_scale
-        self.logger = logger or setup_logger()
+        self.logger = rank_logger(logger or setup_logger())
         # per image of the last run: seconds waiting on the loader, in
         # inference (to the depth on the host) and in the metrics
         self.image_seconds: List[Dict[str, float]] = []
@@ -53,22 +56,36 @@ class Tester:
         return PatchFusionInference(
             self.engine.net, new_tc, process_num=self.engine.process_num,
             rn_times_process_num=self.engine.rn_times_process_num,
-            fusion=self.engine.fusion)
+            fusion=self.engine.fusion, mesh=self.engine.mesh)
+
+    def _sharded(self) -> bool:
+        """Whether the ranks shard the samples (and the metrics need
+        gathering); raises where several ranks would each evaluate every
+        image on its own."""
+        world = world_size()
+        if world == 1 or getattr(self.engine, "mesh", None) is not None:
+            return False
+        sampler = getattr(self.dataloader, "sampler", None)
+        if getattr(sampler, "world", 1) != world:
+            raise ValueError(
+                f"{world} ranks: shard the loader with ShardedSampler(len, "
+                f"{world}, rank), or split each image's tiles with an "
+                "engine over a PatchMesh; the metrics gather of unsharded "
+                f"loaders would count every image {world} times")
+        return True
 
     def run(self, cai_mode: str = "m1", image_raw_shape=None,
             seed: int = 0) -> Dict[str, float]:
-        if torch.distributed.is_available() and \
-                torch.distributed.is_initialized() and \
-                torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "the Tester does not gather metrics across processes yet "
-                "(the scale-out slice); run it in one process")
+        sharded = self._sharded()
         rng = np.random.default_rng(seed)
         results: List[Dict[str, float]] = []
         dataset = self.dataloader.dataset
         engine = (self._rebucket(image_raw_shape)
                   if image_raw_shape is not None else self.engine)
-        if self.save:
+        # a sharded rank writes its own images; under a tile split every
+        # rank holds every image and rank 0 writes them
+        writes = self.save and (sharded or is_main())
+        if writes:
             os.makedirs(self.work_dir, exist_ok=True)
         self.image_seconds = []
 
@@ -83,7 +100,9 @@ class Tester:
                 depth = depth.float().cpu().numpy()
             t_metrics = time.perf_counter()
 
-            if self.save:
+            # the sampler's wraparound duplicates are not written twice
+            pad = sharded and i * world_size() + rank() >= len(dataset)
+            if writes and not pad:
                 from patchfusion_tpu_torch.utils.colorize import \
                     save_depth_png
                 base = batch["img_file_basename"][0]
@@ -107,6 +126,8 @@ class Tester:
                                  len(self.dataloader))
             t_load = time.perf_counter()
 
+        if sharded:
+            results = gather_metric_dicts(results, size=len(dataset))
         self.metrics = (dataset.evaluate(results, logger=self.logger)
                         if results else {})
         return self.metrics

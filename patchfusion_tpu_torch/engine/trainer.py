@@ -4,15 +4,22 @@ estimator/trainer/trainer.py).
 Epoch-based loop with the per-iteration OneCycle step (engine/training.py),
 periodic validation through the port's tiled engine on the live weights,
 checkpointing (fusion-only, as the reference's get_save_dict,
-patchfusion.py:179-187) and optional wandb logging. One process: a world
-size above 1 raises (scale-out is its own slice). The JAX loop's jit,
-state donation and first-step rendezvous have no counterpart in eager
-torch.
+patchfusion.py:179-187) and optional wandb logging.
+
+Data parallel under torch.distributed (the JAX loop's `data` mesh): each
+rank iterates its loader's ShardedSampler shard (the global batch is the
+per-rank batch times the ranks), the step averages the gradients
+(engine/training.py), the validation metrics are gathered across the
+ranks before `evaluate`, and only rank 0 logs, reports to wandb and
+writes checkpoints, with a barrier after each save so that no rank reads
+a checkpoint before it is written. The JAX loop's jit, state donation and
+first-step rendezvous have no counterpart in eager torch (init_distributed
+makes the first collective).
 
 Each step's time is read on the device's clock (CUDA events around the
 step, read at the epoch's end, so no step waits on the host for it) and
 the time spent waiting for the loader on the host's; `epoch_stats` keeps
-both per epoch, with steps/s and the peak allocated memory.
+both per epoch, with steps/s and the peak allocated memory (per rank).
 """
 
 from __future__ import annotations
@@ -26,7 +33,9 @@ import torch
 
 from patchfusion_tpu_torch.engine.checkpoint import save_checkpoint
 from patchfusion_tpu_torch.engine.training import TrainState, to_device_batch
-from patchfusion_tpu_torch.utils.misc import setup_logger
+from patchfusion_tpu_torch.parallel.dist import barrier, is_main, world_size
+from patchfusion_tpu_torch.parallel.gather import gather_metric_dicts
+from patchfusion_tpu_torch.utils.misc import rank_logger, setup_logger
 
 BATCH_KEYS = ("image_lr", "crops_image_hr", "depth_gt", "crop_depths",
               "bboxs")
@@ -41,13 +50,15 @@ def collect_input(batch: Dict[str, Any], collect_keys) -> Dict[str, Any]:
     return {k: batch[k] for k in collect_keys if k in batch}
 
 
-def _check_single_process() -> None:
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized() and \
-            torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "the port's Trainer runs in one process; data-parallel training "
-            "(DDP, the metrics gather) is not ported yet")
+def _check_sharded(loader, what: str) -> None:
+    """Several ranks must each take their own shard of `loader`."""
+    world = world_size()
+    if loader is not None and world > 1 and \
+            getattr(getattr(loader, "sampler", None), "world", 1) != world:
+        raise ValueError(
+            f"{world} ranks: the {what} loader needs ShardedSampler(len, "
+            f"{world}, rank), or every rank would take every sample (one "
+            "process's batches, run world times)")
 
 
 class _StepClock:
@@ -86,7 +97,8 @@ class Trainer:
                  train_log_img_interval: int = 500,
                  val_log_img_interval: int = 50, logger=None,
                  start_epoch: int = 0):
-        _check_single_process()
+        _check_sharded(train_loader, "train")
+        _check_sharded(val_loader, "val")
         self.state = state
         self.step = train_step
         self.train_loader = train_loader
@@ -104,12 +116,12 @@ class Trainer:
         self.eval_start = eval_start
         self.train_log_img_interval = train_log_img_interval
         self.val_log_img_interval = val_log_img_interval
-        self.logger = logger or setup_logger()
+        self.logger = rank_logger(logger or setup_logger())
         self.device = next(state.net.parameters()).device
         self.epoch_stats: List[Dict[str, Any]] = []
         self.val_metrics: Dict[int, Dict[str, float]] = {}
         self.wandb = None
-        if use_wandb:
+        if use_wandb and is_main():
             try:
                 import wandb
                 self.wandb = wandb
@@ -204,6 +216,9 @@ class Trainer:
                     results.append(metrics_i)
         finally:
             self.state.net.train_mode()
+        if world_size() > 1:
+            results = gather_metric_dicts(
+                results, size=len(self.val_loader.dataset))
         metrics = self.val_loader.dataset.evaluate(results,
                                                    logger=self.logger)
         self.logger.info("val epoch %d: %d images in %.1fs wall", epoch,
@@ -214,10 +229,14 @@ class Trainer:
         return metrics
 
     def save(self, epoch: int) -> str:
-        os.makedirs(self.work_dir, exist_ok=True)
+        """Rank 0 writes the checkpoint; every rank returns its path once
+        it is written."""
         path = os.path.join(self.work_dir, f"checkpoint_{epoch:02d}.ckpt")
-        save_checkpoint(path, self.state, epoch)
-        self.logger.info("saved checkpoint to %s", path)
+        if is_main():
+            os.makedirs(self.work_dir, exist_ok=True)
+            save_checkpoint(path, self.state, epoch)
+            self.logger.info("saved checkpoint to %s", path)
+        barrier()
         return path
 
     def run(self) -> None:

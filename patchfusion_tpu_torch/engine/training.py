@@ -16,6 +16,22 @@ and Adam's b1 of each step by the JAX formulas and writes them into the
 optimizer's param group before the step, reading the step counter where
 optax's inject_hyperparams reads it (before the update). The clip is
 optax's clip_by_global_norm (no epsilon), not clip_grad_norm_'s.
+
+Data parallelism (the JAX package's `data` mesh, over torch.distributed
+ranks): a state created in a group of more than one rank is
+`data_parallel`; each rank steps on its shard of the global batch; SILog
+and the fusion BatchNorms reduce over the global batch (the state sets
+the BatchNorms' `global_batch`, the step passes it to the loss;
+models/losses.py, models/fusion.py), and after the backward the gradients are averaged
+across the ranks with one explicit all-reduce, before the clip and AdamW
+(parallel/dist.average_gradients). Not DistributedDataParallel: the
+fusion step runs `train_forward`, not `forward`, which DDP's hooks wrap;
+and every trainable parameter needs a gradient (a zero one where the
+loss does not reach it, so that AdamW decays it as optax does), which
+DDP without find_unused_parameters refuses and with it pays a graph
+walk per step for. The averaged gradient is DDP's. The states start
+equal on every rank: rank 0's weights and BN statistics are broadcast
+when a state is created, and each rank then takes the same updates.
 """
 
 from __future__ import annotations
@@ -30,6 +46,8 @@ import torch.nn as nn
 from patchfusion_tpu_torch.models.fusion import FlaxBatchNorm2d
 from patchfusion_tpu_torch.models.losses import SILogLoss
 from patchfusion_tpu_torch.models.patchfusion import FROZEN_KEYS
+from patchfusion_tpu_torch.parallel.dist import (average_gradients,
+                                                 broadcast_module, world_size)
 
 Params = Dict[str, torch.Tensor]
 
@@ -167,13 +185,15 @@ class TrainState:
     """The JAX package's TrainState over a torch module: `step` counts the
     optimizer steps taken; the trainable and frozen parameters and the BN
     statistics live in `net` (views below); `optimizer` holds the AdamW
-    state of the trainable ones. `amp`: compute under bf16 autocast."""
+    state of the trainable ones. `amp`: compute under bf16 autocast.
+    `data_parallel`: one of several ranks' (module docstring)."""
     step: int
     net: nn.Module
     tx: OneCycleAdamW
     optimizer: torch.optim.Optimizer
     params: List[torch.Tensor]
     amp: bool = False
+    data_parallel: bool = False
 
     @property
     def trainable(self) -> Params:
@@ -200,9 +220,10 @@ def create_train_state(net: nn.Module, tx: OneCycleAdamW,
         for name in FROZEN_KEYS:
             getattr(net, name).to(frozen_dtype)
     net.train_mode()
+    data_parallel = _join_ranks(net)
     params = list(split_params(net)[0].values())
     return TrainState(step=0, net=net, tx=tx, optimizer=tx.init(params),
-                      params=params, amp=amp)
+                      params=params, amp=amp, data_parallel=data_parallel)
 
 
 def create_branch_state(branch: nn.Module, tx: OneCycleAdamW
@@ -210,9 +231,23 @@ def create_branch_state(branch: nn.Module, tx: OneCycleAdamW
     """A ZoeDepth branch ready for pretraining: every parameter trained,
     float32, train mode."""
     branch.float().train().requires_grad_(True)
+    data_parallel = _join_ranks(branch)
     params = list(branch.parameters())
     return TrainState(step=0, net=branch, tx=tx, optimizer=tx.init(params),
-                      params=params)
+                      params=params, data_parallel=data_parallel)
+
+
+def _join_ranks(net: nn.Module) -> bool:
+    """In a group of more than one rank: rank 0's weights and buffers on
+    every rank, and `net`'s fusion BatchNorms on the global batch's
+    statistics. Returns whether the group has more than one rank."""
+    if world_size() == 1:
+        return False
+    broadcast_module(net)
+    for m in net.modules():
+        if isinstance(m, FlaxBatchNorm2d):
+            m.global_batch = True
+    return True
 
 
 def to_device_batch(batch: Dict[str, Any], device, keys) -> Dict[str,
@@ -238,29 +273,33 @@ def fusion_loss(state: TrainState, batch: Dict[str, torch.Tensor],
                 loss_fn: SILogLoss, min_depth: float, max_depth: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward and backward of one fusion step: (loss, pred), with the
-    trainable parameters' gradients set (none accumulated from before).
-    Under amp the forward runs in bf16 autocast over the f32 masters; the
-    loss is reduced in f32."""
+    trainable parameters' gradients set (none accumulated from before;
+    averaged across the ranks). Under amp the forward runs in bf16
+    autocast over the f32 masters; the loss is reduced in f32."""
     net = state.net
     for p in state.params:
         p.grad = None
     with _autocast(state, batch["image_lr"].device):
         pred = net.train_forward(batch["image_lr"], batch["crops_image_hr"],
                                  batch["bboxs"])
-    loss = loss_fn(pred, batch["crop_depths"], min_depth, max_depth)
+    loss = loss_fn(pred, batch["crop_depths"], min_depth, max_depth,
+                   global_batch=state.data_parallel)
     loss.backward()
-    _zero_missing_grads(state.params)
+    _finish_grads(state)
     return loss.detach(), pred.detach()
 
 
-def _zero_missing_grads(params: List[torch.Tensor]) -> None:
+def _finish_grads(state: TrainState) -> None:
     """A zero gradient for each parameter the loss does not reach (the
     sixth fusion conv, whose output no decoder level reads; G2L's dead
     area-prior projection): optax's AdamW decays every leaf, torch's skips
-    a parameter without a gradient."""
-    for p in params:
+    a parameter without a gradient. Then, data-parallel, the gradients'
+    mean across the ranks."""
+    for p in state.params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if state.data_parallel:
+        average_gradients(state.params)
 
 
 def make_train_step(loss_fn: Optional[SILogLoss] = None,
@@ -298,9 +337,10 @@ def branch_loss(state: TrainState, batch: Dict[str, torch.Tensor],
         p.grad = None
     with _autocast(state, x.device):
         pred = state.net(x)["metric_depth"]
-    loss = loss_fn(pred, y, min_depth, max_depth)
+    loss = loss_fn(pred, y, min_depth, max_depth,
+                   global_batch=state.data_parallel)
     loss.backward()
-    _zero_missing_grads(state.params)
+    _finish_grads(state)
     return loss.detach()
 
 

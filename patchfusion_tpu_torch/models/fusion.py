@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from patchfusion_tpu_torch.models.swin import G2LFusion
+from patchfusion_tpu_torch.parallel.dist import all_reduce_sum
 from patchfusion_tpu_torch.ops.resize import interpolate_nchw
 
 
@@ -39,15 +40,27 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     two passes where flax takes E[x^2] - E[x]^2, which loses digits where
     a channel's mean is large against its spread. In eval mode it is
     BatchNorm2d. While `recomputing` is set (remat_call's recompute) it
-    leaves the running statistics alone."""
+    leaves the running statistics alone.
+
+    With `global_batch` set (by the data-parallel train state,
+    engine/training.py), train mode takes the statistics of the global
+    batch over the ranks of the process group, as GSPMD's BatchNorm over
+    the sharded batch axis gives the JAX package (a SyncBN;
+    parallel/dist.py): the global mean and biased variance, in two passes in f32 through a
+    differentiable all-reduce, normalise every rank's shard and update the
+    running statistics. The collectives also run in a remat recompute, in
+    the same order on every rank."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.recomputing = False
+        self.global_batch = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.global_batch:
+            return self._global_forward(x)
         if not self.recomputing:
             with torch.no_grad():
                 var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
@@ -58,6 +71,26 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
                 self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, self.eps)
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        dims = (0, 2, 3)
+        local = torch.cat([x32.sum(dims),
+                           x32.new_tensor([x32.numel() // x32.shape[1]])])
+        total = all_reduce_sum(local)
+        mean = total[:-1] / total[-1]
+        d = x32 - mean[None, :, None, None]
+        var = all_reduce_sum((d * d).sum(dims)) / total[-1]
+        if not self.recomputing:
+            with torch.no_grad():
+                rm, rv = self.running_mean, self.running_var
+                rm.lerp_(mean.to(rm.dtype), self.momentum)
+                rv.lerp_(var.to(rv.dtype), self.momentum)
+                self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = d * scale[None, :, None, None] \
+            + self.bias.float()[None, :, None, None]
+        return y.to(x.dtype)
 
 
 @contextlib.contextmanager

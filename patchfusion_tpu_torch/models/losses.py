@@ -6,6 +6,14 @@ SILogLoss is the only loss a shipped config uses (`sigloss=dict(type=
 EdgeguidedRankingLoss, ScaleAndShiftInvariantLoss, ExistLoss) are not
 ported yet (ROADMAP.md). Masks select by `torch.where`, as the JAX
 package's static-shape formulation does, so no step waits on the host.
+
+With `global_batch=True` (the data-parallel step asks for it) SILog is
+the loss of the global batch over the ranks of the process group, as the
+JAX step computes it over the global array: the valid count, the sum of g
+and the sum of squared deviations are reduced across the ranks
+(parallel/dist.all_reduce_sum, differentiable). SILog is not linear in
+the batch, so averaging each rank's loss would give another loss and
+another gradient.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import torch
 
 from patchfusion_tpu_torch.config.registry import MODELS
 from patchfusion_tpu_torch.ops.resize import interpolate_nchw
+from patchfusion_tpu_torch.parallel.dist import all_reduce_, all_reduce_sum
 
 
 @MODELS.register_module
@@ -32,12 +41,13 @@ class SILogLoss:
 
     def __call__(self, pred: torch.Tensor, target: torch.Tensor,
                  min_depth: float, max_depth: float,
-                 additional_mask: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+                 additional_mask: Optional[torch.Tensor] = None,
+                 global_batch: bool = False) -> torch.Tensor:
         """pred (B, 1, h, w), target (B, 1, H, W), NCHW; additional_mask a
         boolean map like target. A bf16 pred (--amp) is reduced in f32; a
         pred of another size is resized to the target's (bilinear,
-        align_corners=True)."""
+        align_corners=True). global_batch: this rank's batch is a shard;
+        reduce over every rank's (module docstring)."""
         pred = pred.float()
         h_i, w_i = pred.shape[-2:]  # the pre-resize size, as the reference
         if tuple(pred.shape[-2:]) != tuple(target.shape[-2:]):
@@ -49,15 +59,26 @@ class SILogLoss:
             # covers < 0.1% of the pred's pixel count, keep the plain
             # validity mask
             merged = mask & additional_mask
-            enough = merged.sum() >= h_i * w_i * 0.001
+            count = merged.sum()
+            if global_batch:
+                all_reduce_(count)
+            enough = count >= h_i * w_i * 0.001
             mask = torch.where(enough, merged, mask)
-        n = mask.sum().float()
         alpha = 1e-7
         g = torch.where(mask, torch.log(pred + alpha)
                         - torch.log(target + alpha), 0.0)
-        mean = g.sum() / n.clamp(min=1.0)
-        var = torch.where(mask, (g - mean) ** 2, 0.0).sum() \
-            / (n - 1.0).clamp(min=1.0)
+        if global_batch:
+            n, sum_g = all_reduce_sum(torch.stack([mask.sum().float(),
+                                                   g.sum()]))
+            mean = sum_g / n.clamp(min=1.0)
+            var = all_reduce_sum(torch.where(mask, (g - mean) ** 2,
+                                             0.0).sum()) \
+                / (n - 1.0).clamp(min=1.0)
+        else:
+            n = mask.sum().float()
+            mean = g.sum() / n.clamp(min=1.0)
+            var = torch.where(mask, (g - mean) ** 2, 0.0).sum() \
+                / (n - 1.0).clamp(min=1.0)
         valid = n > 1
         # the square root only of a valid sum, so that no 0 / 0 reaches the
         # gradient of the discarded branch

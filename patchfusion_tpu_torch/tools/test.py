@@ -14,11 +14,21 @@ for a BaselinePretrain config, one branch '.pth' or a weights file of
 tools/train_branch.py. Without it the weights are random (seeded). The JAX
 package's msgpack files are not read: they raise.
 
-Flags as tools/test.py has them, less --mesh and --chunk-policy (they shape
-the JAX package's compiled programs and device mesh, which the port does not
-have), plus --device (default cuda; raises where CUDA is missing) and
---dtype (default bfloat16, the port's main path, where the metric-bins
-head runs its CUDA kernels; float32 is the reference's precision).
+Flags as tools/test.py has them, less --chunk-policy (it shapes the JAX
+package's compiled programs), plus --device (default cuda; raises where
+CUDA is missing) and --dtype (default bfloat16, the port's main path,
+where the metric-bins head runs its CUDA kernels; float32 is the
+reference's precision).
+
+Several ranks (torchrun --nproc-per-node N -m
+patchfusion_tpu_torch.tools.test ..., one device each). The JAX package's
+--mesh splits the tiles over one process's local devices and shards the
+samples over processes; here every device is a rank, so --mesh chooses:
+  none  the ranks shard the samples (ShardedSampler) and gather the
+        metrics (the JAX package across hosts);
+  patch every rank takes every image and a share of its tiles, and the
+        ranks sum the canvases (the JAX patch mesh); a world of 1 errors;
+  auto  none: sample sharding, the cheaper split for a test set.
 """
 
 from __future__ import annotations
@@ -51,9 +61,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--gt-dir", default=None)
     p.add_argument("--dataset-name", default="")
     p.add_argument("--cfg-options", nargs="+", default=[])
+    p.add_argument("--mesh", default="auto",
+                   choices=["auto", "patch", "none"],
+                   help="several ranks: split each image's tiles across "
+                        "them (patch) or shard the samples (none, auto)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     return p.parse_args(argv)
+
 
 
 def load_patchfusion(config, ckp: Optional[str], device,
@@ -86,14 +101,15 @@ def load_patchfusion(config, ckp: Optional[str], device,
                                    ckpts=ckpts)
 
 
-def build_engine(cfg, args: argparse.Namespace):
+def build_engine(cfg, args: argparse.Namespace, device, mesh):
     """The engine the Tester drives: a PatchFusion config's tiled engine,
     or a BaselinePretrain config's model (coarse) or fusion-less engine
-    (fine), with the weights --ckp-path names (seeded random without)."""
+    (fine), with the weights --ckp-path names (seeded random without), on
+    this rank's `device`; mesh: the tile split (or None)."""
     from patchfusion_tpu_torch.api import BaselinePretrain
     from patchfusion_tpu_torch.models.patchfusion import TileConfig
 
-    ckp, device, dtype = args.ckp_path, args.device, DTYPES[args.dtype]
+    ckp, dtype = args.ckp_path, DTYPES[args.dtype]
     raw_shape = tuple(args.image_raw_shape)
     split = tuple(args.patch_split_num)
     if cfg.model["type"] == "BaselinePretrain":
@@ -107,7 +123,7 @@ def build_engine(cfg, args: argparse.Namespace):
         args_bp = (branch_cfg, mcfg["min_depth"], mcfg["max_depth"])
         kw = dict(target=target, image_raw_shape=raw_shape,
                   patch_split_num=split, patch_process_shape=tuple(pps),
-                  device=device, dtype=dtype)
+                  device=device, dtype=dtype, mesh=mesh)
         model = (BaselinePretrain.from_torch(*args_bp, ckp, **kw) if ckp
                  else BaselinePretrain(*args_bp, **kw))
         return model if target == "coarse" else model.engine(
@@ -117,7 +133,7 @@ def build_engine(cfg, args: argparse.Namespace):
                              dtype)
     tile_cfg = TileConfig(raw_shape, split,
                           model.tile_cfg.patch_process_shape)
-    return model.engine(args.process_num, tile_cfg)
+    return model.engine(args.process_num, tile_cfg, mesh)
 
 
 def evaluate(argv: Optional[List[str]] = None):
@@ -129,17 +145,27 @@ def evaluate(argv: Optional[List[str]] = None):
     from patchfusion_tpu_torch.config import Config, parse_cfg_option
     from patchfusion_tpu_torch.config.registry import DATASETS
     from patchfusion_tpu_torch.data import general, u4k  # noqa: F401
-    from patchfusion_tpu_torch.data.loader import DataLoader
+    from patchfusion_tpu_torch.data.loader import DataLoader, ShardedSampler
     from patchfusion_tpu_torch.engine.tester import Tester
-    from patchfusion_tpu_torch.utils.misc import setup_logger
+    from patchfusion_tpu_torch.parallel.dist import (init_rank, rank,
+                                                     resolve_cli_mesh,
+                                                     world_size)
+    from patchfusion_tpu_torch.utils.misc import rank_logger, setup_logger
 
+    device = init_rank(args.device)
+    mesh = resolve_cli_mesh("none" if args.mesh == "auto" else args.mesh)
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         opts = dict(kv.split("=", 1) for kv in args.cfg_options)
         cfg.merge_from_dict({k: parse_cfg_option(v)
                              for k, v in opts.items()})
-    logger = setup_logger()
-    engine = build_engine(cfg, args)
+    logger = rank_logger(setup_logger())
+    engine = build_engine(cfg, args, device, mesh)
+    if mesh is not None:
+        logger.info("tile split over %d ranks; shard report (%s): %s",
+                    mesh.size, args.cai_mode,
+                    engine.shard_report(args.cai_mode)
+                    if hasattr(engine, "shard_report") else "coarse target")
 
     if args.test_type == "general":
         dcfg = dict(cfg.general_dataloader)
@@ -158,7 +184,11 @@ def evaluate(argv: Optional[List[str]] = None):
         ds_cfg = dict(dcfg["dataset"])
 
     dataset = DATASETS.build(ds_cfg)
+    # sample sharding without a tile split; every image on every rank with
+    # one
+    shards = (1, 0) if mesh is not None else (world_size(), rank())
     loader = DataLoader(dataset, batch_size=1,
+                        sampler=ShardedSampler(len(dataset), *shards),
                         num_workers=dcfg.get("num_workers", 2))
     tester = Tester(engine, loader, work_dir=args.work_dir, save=args.save,
                     gray_scale=args.gray_scale, logger=logger)
@@ -174,4 +204,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
 
 
 if __name__ == "__main__":
+    from patchfusion_tpu_torch.parallel.dist import shutdown
+
     main()
+    shutdown()

@@ -17,8 +17,22 @@ under autocast, frozen branches stored in bf16, trainable masters and
 AdamW state in f32. Branch pretraining is tools/train_branch.py.
 
 Flags as tools/train.py has them, plus --device (default cuda; raises
-where CUDA is missing). The JAX launcher flags --coordinator,
---num-processes and --process-id raise: the port trains in one process.
+where CUDA is missing). The ranks talk over nccl on CUDA, gloo on the CPU.
+
+Data parallel over ranks, one device each (the JAX package's data mesh
+over a host's devices is that many ranks here), launched by torchrun
+
+    torchrun --nproc-per-node N -m patchfusion_tpu_torch.tools.train CONFIG
+
+or by the JAX package's flags, one process per rank:
+
+    python -m patchfusion_tpu_torch.tools.train CONFIG \
+        --coordinator HOST:PORT --num-processes N --process-id R
+
+Each rank loads its ShardedSampler shard of train_dataloader's batch_size
+(the global batch is N times it, as in the JAX package, and the OneCycle
+step count comes from the per-rank loader's length); rank 0 writes the
+work dir's config, log and checkpoints (engine/trainer.py).
 """
 
 from __future__ import annotations
@@ -29,6 +43,9 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+from patchfusion_tpu_torch.parallel.dist import (init_rank, is_main, rank,
+                                                 world_size)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -54,6 +71,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+
 def load_config(path: str, cfg_options: List[str]):
     from patchfusion_tpu_torch.config import Config, parse_cfg_option
 
@@ -66,7 +84,7 @@ def load_config(path: str, cfg_options: List[str]):
 
 
 def build_loader(dcfg, shuffle: bool, seed: int, **ds_extra):
-    """A DataLoader over a config's dataloader dict (one process)."""
+    """A DataLoader over a config's dataloader dict: this rank's shard."""
     from patchfusion_tpu_torch.config.registry import DATASETS
     from patchfusion_tpu_torch.data import general, u4k  # noqa: F401
     from patchfusion_tpu_torch.data.loader import DataLoader, ShardedSampler
@@ -74,7 +92,8 @@ def build_loader(dcfg, shuffle: bool, seed: int, **ds_extra):
     ds_cfg = dict(dcfg["dataset"])
     ds_cfg.update(ds_extra)
     ds = DATASETS.build(ds_cfg)
-    sampler = ShardedSampler(len(ds), 1, 0, shuffle=shuffle, seed=seed)
+    sampler = ShardedSampler(len(ds), world_size(), rank(), shuffle=shuffle,
+                             seed=seed)
     return DataLoader(ds, batch_size=dcfg.get("batch_size", 1),
                       sampler=sampler, num_workers=dcfg.get("num_workers", 4),
                       drop_last=shuffle)
@@ -107,11 +126,8 @@ def main(argv: Optional[List[str]] = None):
     """Run the training; returns the Trainer (its state, epoch_stats and
     val_metrics)."""
     args = parse_args(argv)
-    for flag in ("coordinator", "num_processes", "process_id"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} launches the JAX package's "
-                "multi-host run; the port trains in one process")
+    device = init_rank(args.device, args.coordinator, args.num_processes,
+                       args.process_id)
 
     from patchfusion_tpu_torch.api import PatchFusion
     from patchfusion_tpu_torch.engine.checkpoint import (load_checkpoint,
@@ -120,18 +136,20 @@ def main(argv: Optional[List[str]] = None):
     from patchfusion_tpu_torch.engine.trainer import Trainer
     from patchfusion_tpu_torch.engine.training import (create_train_state,
                                                        make_train_step)
-    from patchfusion_tpu_torch.models.builder import check_device
-    from patchfusion_tpu_torch.utils.misc import fix_random_seed, setup_logger
+    from patchfusion_tpu_torch.utils.misc import (fix_random_seed,
+                                                  rank_logger, setup_logger)
 
-    device = check_device(args.device)
     cfg = load_config(args.config, args.cfg_options)
     work_dir = args.work_dir or os.path.join(
         "./work_dir", os.path.splitext(os.path.basename(args.config))[0])
-    os.makedirs(work_dir, exist_ok=True)
-    cfg.dump(os.path.join(work_dir, "config.py"))
-    logger = setup_logger(log_file=os.path.join(work_dir, "train.log"))
+    if is_main():
+        os.makedirs(work_dir, exist_ok=True)
+        cfg.dump(os.path.join(work_dir, "config.py"))
+        logger = setup_logger(log_file=os.path.join(work_dir, "train.log"))
+    else:
+        logger = rank_logger(setup_logger())
     fix_random_seed(args.seed)
-    if args.use_wandb:
+    if args.use_wandb and is_main():
         try:
             import wandb
             wandb.init(project=cfg.get("project", "patchfusion"),
@@ -221,4 +239,7 @@ def main(argv: Optional[List[str]] = None):
 
 
 if __name__ == "__main__":
+    from patchfusion_tpu_torch.parallel.dist import shutdown
+
     main()
+    shutdown()

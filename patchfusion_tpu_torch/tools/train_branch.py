@@ -14,7 +14,12 @@ at the last. The fusion CLI's `pretrain_model` reads those files as it
 reads the reference's branch `.pth` files.
 
 Flags as tools/train_branch.py has them, plus --device (default cuda;
-raises where CUDA is missing). The DINOv2 attention runs on the default
+raises where CUDA is missing) and the fusion CLI's launcher flags
+(--coordinator, --num-processes, --process-id, or torchrun's
+environment): data parallel over ranks as the JAX package's data mesh
+(tools/train_branch.py there), each rank on its ShardedSampler shard,
+SILog over the global batch, the gradients averaged across the ranks,
+rank 0 writing the weights. The DINOv2 attention runs on the default
 einsum path: the attention kernel (PF_ATTN_IMPL=pallas) has no backward
 and raises under a gradient.
 """
@@ -34,6 +39,9 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--work-dir", default=None)
     p.add_argument("--seed", type=int, default=621)
     p.add_argument("--cfg-options", nargs="+", default=[])
+    p.add_argument("--coordinator", default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -41,19 +49,25 @@ def main(argv: Optional[List[str]] = None):
     from patchfusion_tpu_torch.engine.checkpoint import save_params
     from patchfusion_tpu_torch.engine.training import (
         create_branch_state, make_branch_train_step, to_device_batch)
-    from patchfusion_tpu_torch.models.builder import (build_zoedepth_branch,
-                                                      check_device)
+    from patchfusion_tpu_torch.models.builder import build_zoedepth_branch
+    from patchfusion_tpu_torch.parallel.dist import (barrier, init_rank,
+                                                     is_main)
     from patchfusion_tpu_torch.tools.train import (build_loader, load_config,
                                                    make_optimizer)
-    from patchfusion_tpu_torch.utils.misc import fix_random_seed, setup_logger
+    from patchfusion_tpu_torch.utils.misc import (fix_random_seed,
+                                                  rank_logger, setup_logger)
 
-    device = check_device(args.device)
+    device = init_rank(args.device, args.coordinator, args.num_processes,
+                       args.process_id)
     cfg = load_config(args.config, args.cfg_options)
     fix_random_seed(args.seed)
     work_dir = args.work_dir or os.path.join(
         "./work_dir", os.path.splitext(os.path.basename(args.config))[0])
-    os.makedirs(work_dir, exist_ok=True)
-    logger = setup_logger(log_file=os.path.join(work_dir, "train.log"))
+    if is_main():
+        os.makedirs(work_dir, exist_ok=True)
+        logger = setup_logger(log_file=os.path.join(work_dir, "train.log"))
+    else:
+        logger = rank_logger(setup_logger())
 
     mcfg = cfg.model
     target = mcfg["target"]
@@ -89,10 +103,15 @@ def main(argv: Optional[List[str]] = None):
         if epoch % tcfg.get("save_checkpoint_interval", 24) == 0 \
                 or epoch == tcfg["max_epochs"]:
             path = os.path.join(work_dir, f"checkpoint_{epoch:02d}.ckpt")
-            save_params(path, branch.state_dict())
-            logger.info("saved %s", path)
+            if is_main():
+                save_params(path, branch.state_dict())
+                logger.info("saved %s", path)
+            barrier()
     return state, [float(x) for x in losses]
 
 
 if __name__ == "__main__":
+    from patchfusion_tpu_torch.parallel.dist import shutdown
+
     main()
+    shutdown()

@@ -11,6 +11,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from patchfusion_tpu_torch.parallel.dist import rank
+
 
 def fix_random_seed(seed: int) -> None:
     """Seed every ambient RNG in play: Python's, numpy's global one and
@@ -38,3 +40,15 @@ def setup_logger(name: str = "patchfusion_tpu_torch",
         fh.setFormatter(fmt)
         logger.addHandler(fh)
     return logger
+
+
+def rank_logger(logger: logging.Logger) -> logging.Logger:
+    """`logger` on rank 0 (or without a process group); on another rank a
+    child of it that passes warnings and errors only, so that one rank
+    logs the run."""
+    r = rank()
+    if r == 0:
+        return logger
+    quiet = logger.getChild(f"rank{r}")
+    quiet.setLevel(logging.WARNING)
+    return quiet

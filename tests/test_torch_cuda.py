@@ -500,3 +500,62 @@ def test_attention_kernel_raises_under_grad(cuda):
     with torch.no_grad():
         vit_attention.vit_attention(q, k, v)
     assert vit_attention.LAUNCHES["vit_attention"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_world_one_batchnorm_and_silog_unchanged(cuda, dtype):
+    """Without a process group, FlaxBatchNorm2d's train mode and SILogLoss
+    take their single-process route on the card, bitwise: F.batch_norm on
+    the batch statistics with flax's running-statistics update, and the
+    masked SILog in one pass over the batch."""
+    import torch.nn.functional as F
+
+    from patchfusion_tpu_torch.models.fusion import FlaxBatchNorm2d
+    from patchfusion_tpu_torch.models.losses import SILogLoss
+
+    assert not torch.distributed.is_initialized()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(4, 32, 24, 30, device=cuda, generator=gen).to(dtype)
+    bn = FlaxBatchNorm2d(32).to(cuda).train()
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=gen)
+        bn.bias.normal_(generator=gen)
+    y = bn(x)
+    var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+    assert torch.equal(y, F.batch_norm(x, None, None, bn.weight, bn.bias,
+                                       True, 0.0, bn.eps))
+    assert torch.equal(bn.running_mean, torch.zeros(32, device=cuda)
+                       .lerp_(mean, 0.1))
+    assert torch.equal(bn.running_var, torch.ones(32, device=cuda)
+                       .lerp_(var, 0.1))
+
+    pred = (torch.rand(4, 1, 24, 30, device=cuda, generator=gen) * 40
+            + 1).to(dtype)
+    gt = torch.rand(4, 1, 24, 30, device=cuda, generator=gen) * 40 + 1
+    gt[0, :, :5] = 0.0
+    mask = (gt > 1e-3) & (gt < 80.0)
+    n = mask.sum().float()
+    g = torch.where(mask, torch.log(pred.float() + 1e-7)
+                    - torch.log(gt + 1e-7), 0.0)
+    m = g.sum() / n.clamp(min=1.0)
+    v = torch.where(mask, (g - m) ** 2, 0.0).sum() / (n - 1.0).clamp(min=1.0)
+    want = 10.0 * torch.sqrt(v + 0.15 * m ** 2)
+    assert torch.equal(SILogLoss()(pred, gt, 1e-3, 80.0), want)
+
+
+@pytest.mark.cuda
+def test_nccl_refuses_two_ranks_on_one_card(cuda, monkeypatch):
+    """Under nccl, a local rank without a card of its own (two ranks on
+    one card) raises before any rendezvous, naming the cause."""
+    from patchfusion_tpu_torch.parallel import dist
+
+    local = torch.cuda.device_count()
+    monkeypatch.setenv("WORLD_SIZE", str(local + 1))
+    monkeypatch.setenv("RANK", str(local))
+    monkeypatch.setenv("LOCAL_RANK", str(local))
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", "1")
+    with pytest.raises(RuntimeError, match="one card|one device"):
+        dist.init_distributed(device="cuda")
+    assert not torch.distributed.is_initialized()

@@ -173,15 +173,17 @@ def test_tester_matches_jax(split, models):
 
 
 def test_tester_refuses_several_processes(split, models, monkeypatch):
-    """Metrics are not gathered across ranks yet: a world of 2 raises
-    rather than reporting one rank's share."""
+    """Several ranks with neither a sharded loader nor a tile-split engine
+    raise rather than gather every image once per rank (the 2-rank Tester
+    itself: tests/test_torch_dist.py)."""
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 0)
     root, split_file = split
     tester = Tester(models[2].engine(PROCESS_NUM), loader.DataLoader(
         u4k.UnrealStereo4kDataset(**U4K_KW, data_root=root,
                                   split=split_file), num_workers=1))
-    with pytest.raises(NotImplementedError, match="gather"):
+    with pytest.raises(ValueError, match="gather"):
         tester.run()
 
 

@@ -310,10 +310,15 @@ def test_trainer_runs_resumes_and_round_trips(tmp_path):
 
 
 def test_trainer_refuses_several_processes(monkeypatch, tmp_path):
+    """Several ranks over a loader that is not sharded across them raise
+    rather than train on every sample once per rank (the 2-rank Trainer
+    itself: tests/test_torch_dist_train.py)."""
+    model, trainer = _trainer(0, tmp_path, 1)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="one process"):
-        _trainer(0, tmp_path, 1)
+    with pytest.raises(ValueError, match="one process"):
+        Trainer(trainer.state, training.make_train_step(),
+                trainer.train_loader)
 
 
 # -- the CLIs ---------------------------------------------------------------
@@ -350,7 +355,8 @@ def test_train_cli_trains_resumes_and_tests(u4k_split, tmp_path):
     validation after epoch 2 with finite metrics, a checkpoint per epoch;
     --resume from epoch 1 continues to step 4; the test CLI reads the
     port's .ckpt (fusion-only, over seeded branches) and returns finite
-    metrics; the JAX launcher flags raise."""
+    metrics; an incomplete set of the JAX launcher flags raises (the
+    2-process run: tests/test_torch_dist_train.py)."""
     root, split = u4k_split
     cfg_file = tmp_path / "tiny_train.py"
     cfg_file.write_text(
@@ -378,9 +384,10 @@ def test_train_cli_trains_resumes_and_tests(u4k_split, tmp_path):
                          "--patch-split-num", "2", "2", "--process-num", "2",
                          "--work-dir", str(tmp_path / "test")])
     assert got and all(np.isfinite(v) for v in got.values())
-    for flag in ("--coordinator", "--num-processes", "--process-id"):
-        with pytest.raises(NotImplementedError, match="one process"):
-            train_cli.main([str(cfg_file), "--device", "cpu", flag, "1"])
+    for flag, value in (("--coordinator", "localhost:1"),
+                        ("--num-processes", "2"), ("--process-id", "1")):
+        with pytest.raises(ValueError, match="--"):
+            train_cli.main([str(cfg_file), "--device", "cpu", flag, value])
 
 
 def test_train_branch_cli_feeds_the_fusion_stage(u4k_split, tmp_path):
