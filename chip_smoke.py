@@ -73,7 +73,35 @@
    and losses; (e) one step with train_remat off and on: the same loss,
    each one's peak; (f) 2 steps of tools.train_branch for vitl coarse
    (f32).
-10. The BEiT ZoeDepth family (phase `beit`,
+10. The rest of the JAX package's surface (phase `surface`): (a) one
+   DA-vitl fusion train_forward at batch 4 with --amp on 392x518 crops of
+   synthetic 4K scenes; on its prediction SILog and the research losses
+   (ScaleAndShiftInvariantLoss over the valid mask, ExistLoss over the
+   Sobel magnitudes of the prediction and of the coarse ROI depth,
+   EdgeguidedRankingLoss at 10,000 pairs from a seeded CUDA generator,
+   ErrorLoss "incoh_grad_depth" and EdgeClsLoss over a seeded 3-class
+   softmax): each finite and within 1e-4 relative of the port's CPU value
+   on the same tensors (the ranking loss with the card's draws injected),
+   the sum's backward finite on the fusion parameters, 3 + 3 head launches
+   forward and none in the recompute backward, each loss's time on CUDA
+   events; (b) the seeded vitl model's weights through `python -m
+   patchfusion_tpu_torch.tools.export_hub` and PatchFusion.from_pretrained
+   on the card: m1 at 2160x3840 bitwise equal to the live model's; a
+   fusion-only export (from save) holds exactly the fusion keys; the write
+   and load seconds and the snapshot's bytes; (c) the vitl model's
+   published-layout .pth triple through `python -m
+   patchfusion_tpu_torch.tools.convert_checkpoint`: the model the CLIs'
+   loader reads from that one file gives from_config(ckpts=triple)'s m1,
+   bitwise; (d) 2 train and 1 val scenes at 2160x3840 from the port's
+   make_synth_u4k (no OpenCV), seconds per scene, and
+   configs/demo/train_fusion_synth_vitl.py through tools.train on them for
+   one epoch (2 steps at batch 2 with train_remat): finite losses,
+   images/s over the epoch and the peak; (e) 3 warm m1 requests under
+   utils/profiling.SectionTimer and one under trace(dir), whose Chrome
+   trace names 9 clb_pt and 9 logbinomial_depth launches; (f)
+   model("infer", image_lr=..., image_hr=...) on NCHW card tensors:
+   infer's m1 depth (1568x2072 from 2160x3840) as (1, 1, H, W), bitwise.
+11. The BEiT ZoeDepth family (phase `beit`,
    configs/patchfusion_zoedepth): (a) the head kernels against their twins
    at the BEiT head's shapes (B = 1 and 4, 384x512 from 192x256, K = 64,
    f32 and bf16, channels-last and NCHW views, the tolerances of step 3),
@@ -96,7 +124,7 @@
    time; (e) two fusion-stage steps at batch 4 with --amp on one fixed
    batch: finite losses, 3 + 3 head launches a step, the step time on the
    device's clock and the peak.
-11. Scale-out over torch.distributed (phase `dist`; child processes of
+12. Scale-out over torch.distributed (phase `dist`; child processes of
    this script, `--dist-child PART DIR`, with torchrun's variables, each
    with a time limit that kills them all): (a) one rank over nccl at
    world 1: the tiny config's m1 through the tile split on cuda:0
@@ -115,12 +143,12 @@
    sharding the scenes, its gathered metrics within 1e-4 of one
    process's; walls, step times on CUDA events and peaks per rank. Two
    ranks on one card show the collectives, not a speed-up.
-12. Prints one JSON line with the kernels' launches (the main path's, and
-   for the head kernels the eval phase's, the training steps', the
-   2-rank tile split's per rank and the BEiT path's with their
-   BEiT-shape rows), errors, times (the head kernels' recompute backward
-   too) and bounds, then {"ok": true, "device": {...}} as the last
-   line.
+13. Prints one JSON line with the kernels' launches (the main path's, and
+   for the head kernels the eval phase's, the training steps', phase
+   surface's, the 2-rank tile split's per rank and the BEiT path's with
+   their BEiT-shape rows), errors, times (the head kernels' recompute
+   backward too) and bounds, then {"ok": true, "device": {...}} as the
+   last line.
 
 Any failed check raises, so the script exits non-zero without the last line.
 It needs one CUDA card and nothing but this repository.
@@ -137,6 +165,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1751,6 +1780,455 @@ def phase_train():
 
 
 # ---------------------------------------------------------------------------
+# phase surface: the research losses, export / convert, synthetic data and
+# the demo recipe, profiling, the call shim
+# ---------------------------------------------------------------------------
+
+DEMO_CONFIG = "configs/demo/train_fusion_synth_vitl.py"
+LOSS_TOL = 1e-4  # each research loss, card against CPU, relative
+
+
+def _synth_data(root: Path) -> dict:
+    """(d): 2 train and 1 val synthetic U4K scenes at 2160x3840 from the
+    port's make_synth_u4k (its main, what `python -m` runs), --oversample
+    2; the seconds per scene."""
+    from patchfusion_tpu_torch.tools import make_synth_u4k
+
+    t = time.perf_counter()
+    lines = make_synth_u4k.main([
+        "--root", str(root), "--n-train", "2", "--n-val", "1",
+        "--oversample", "2", "--seed", "0", "--height", str(RAW_SHAPE[0]),
+        "--width", str(RAW_SHAPE[1])])
+    per_scene = (time.perf_counter() - t) / len(lines)
+    check(len(lines) == 3 and (root / "train_x2.txt").exists(),
+          "make_synth_u4k: split files")
+    say(f"surface: make_synth_u4k (no OpenCV) wrote 3 scenes at "
+        f"{RAW_SHAPE[0]}x{RAW_SHAPE[1]}, {per_scene:.2f} s per scene")
+    return {"synth_s_per_scene": per_scene}
+
+
+def _demo_options(root: Path):
+    """The demo config pointed at the synthetic scenes, one epoch."""
+    return [f"train_dataloader.dataset.data_root={root}",
+            f"train_dataloader.dataset.split={root / 'train_x2.txt'}",
+            f"val_dataloader.dataset.data_root={root}",
+            f"val_dataloader.dataset.split={root / 'val.txt'}",
+            "train_cfg.max_epochs=1", "train_cfg.log_interval=1"]
+
+
+def _loss_batch(root: Path):
+    """4 train crops (392x518 of the synthetic 4K scenes, the demo
+    config's train loader at batch 4) as NCHW tensors on the card."""
+    from patchfusion_tpu_torch.engine.trainer import STEP_KEYS, collect_input
+    from patchfusion_tpu_torch.engine.training import to_device_batch
+    from patchfusion_tpu_torch.models.patchfusion import TileConfig
+    from patchfusion_tpu_torch.tools import train as train_cli
+
+    cfg = train_cli.load_config(str(ROOT / DEMO_CONFIG),
+                                [*_demo_options(root),
+                                 "train_dataloader.batch_size=4"])
+    mc = cfg.model.config
+    tc = TileConfig(tuple(mc.image_raw_shape), tuple(mc.patch_split_num),
+                    tuple(mc.patch_process_shape))
+    loader = train_cli.build_loader(cfg.train_dataloader, True, 0,
+                                    patch_raw_shape=tc.patch_raw_shape)
+    batch = next(iter(loader))
+    return to_device_batch(collect_input(batch, STEP_KEYS), "cuda",
+                           STEP_KEYS)
+
+
+def _research_losses(pred, coarse, batch, probs, gen=None, draws=None):
+    """({name: loss}, the ranking loss's draws) of SILog and the research
+    losses on one prediction, float32 tensors on one device: SSI and
+    Exist on the prediction and the coarse depth brought to the crops'
+    depth size (bilinear, align_corners=True, as SILog does), ErrorLoss
+    and EdgeClsLoss over the class probabilities `probs` (EdgeClsLoss on
+    ErrorLoss's labels). gen: the ranking loss's generator; or draws: its
+    samples, injected."""
+    from patchfusion_tpu_torch.models import losses as L
+    from patchfusion_tpu_torch.ops.resize import interpolate_nchw
+
+    gt = batch["crop_depths"]
+    mask = (gt > 1e-3) & (gt < 80.0)
+    pred_up, coarse_up = (
+        interpolate_nchw(x, tuple(gt.shape[-2:]), align_corners=True)
+        for x in (pred, coarse))
+    rank = L.EdgeguidedRankingLoss()
+    if draws is None:
+        sample, drawn = rank.sample, []
+
+        def spy(ok, g):  # keeps the draws for the CPU's run
+            drawn.append(sample(ok, g))
+            return drawn[-1]
+
+        rank.sample = spy
+        ranking = rank(pred, gt, batch["crops_image_hr"], gt, generator=gen)
+        draws = drawn[0]
+    else:
+        ranking = rank(pred, gt, batch["crops_image_hr"], gt,
+                       anchor_rc=draws[0], dist=draws[1], direct_p=draws[2])
+    e_dice, e_focal, labels = L.ErrorLoss("incoh_grad_depth")(
+        probs, gt, coarse, 1e-3, 80.0)
+    c_dice, c_focal = L.EdgeClsLoss()(probs, labels)
+    out = {"silog": L.SILogLoss()(pred, gt, 1e-3, 80.0),
+           "ssi": L.ScaleAndShiftInvariantLoss()(pred_up, gt, mask),
+           "exist": L.ExistLoss()(L._sobel_grad_map(pred_up),
+                                  L._sobel_grad_map(coarse_up), mask),
+           "ranking": ranking,
+           "error_dice": e_dice, "error_focal": e_focal,
+           "edge_dice": c_dice, "edge_focal": c_focal}
+    return out, draws
+
+
+def _surface_losses(root: Path) -> dict:
+    """(a): one DA-vitl fusion train_forward at batch 4 with --amp; SILog
+    and each research loss on its prediction (the coarse prediction: the
+    ROI of the coarse depth the fusion stage reads), finite and within
+    LOSS_TOL of the port's CPU values on the same tensors; the sum's
+    backward finite on the fusion parameters; head launches 3 + 3 forward,
+    none in the recompute backward; each loss's time on CUDA events."""
+    import torch
+    from patchfusion_tpu_torch.models import losses as L
+    from patchfusion_tpu_torch.ops.resize import interpolate_nchw
+
+    batch = _loss_batch(root)
+    state = _vitl_state()
+    net = state.net
+    seen = {}
+    post = net.coarse_postprocess
+
+    def spy(*a, **k):
+        out = post(*a, **k)
+        seen["coarse"] = out[0]
+        return out
+
+    net.coarse_postprocess = spy
+    reset_counts()
+    try:
+        with attn_impl("einsum"), torch.autocast("cuda",
+                                                 dtype=torch.bfloat16):
+            pred = net.train_forward(batch["image_lr"],
+                                     batch["crops_image_hr"],
+                                     batch["bboxs"])
+    finally:
+        del net.coarse_postprocess
+    torch.cuda.synchronize()
+    forward = counts()
+    pred = pred.float()
+    coarse = seen["coarse"].float()
+    hw = tuple(net.patch_process_shape)
+    check(tuple(pred.shape) == (4, 1, *hw), f"losses: pred {pred.shape}")
+    gen = torch.Generator("cuda").manual_seed(0)
+    probs = torch.softmax(torch.randn((4, 3, *hw), generator=gen,
+                                      device="cuda"), 1)
+    card, draws = _research_losses(pred, coarse, batch, probs, gen=gen)
+    anchors, dist, _ = draws
+    check(anchors.shape == (4, 10000, 2) and int(dist.min()) >= 2
+          and int(dist.max()) <= 30, "losses: ranking draws")
+    cpu, _ = _research_losses(
+        pred.detach().cpu(), coarse.cpu(),
+        {k: v.cpu() for k, v in batch.items()}, probs.cpu(),
+        draws=[d.cpu() for d in draws])
+    rels = {}
+    for name, v in card.items():
+        a, b = v.item(), cpu[name].item()
+        check(math.isfinite(a), f"losses: {name} = {a}")
+        rels[name] = abs(a - b) / max(abs(b), 1e-12)
+        check(rels[name] <= LOSS_TOL, f"losses: {name} {a} on the card, "
+              f"{b} on the CPU ({rels[name]:.3g}, tolerance {LOSS_TOL})")
+    reset_counts()
+    sum(card.values()).backward()
+    torch.cuda.synchronize()
+    backward = counts()
+    grads = [p.grad for p in state.trainable.values() if p.grad is not None]
+    check(len(grads) > 0.8 * len(state.trainable)
+          and all(bool(torch.isfinite(g).all()) for g in grads),
+          f"losses: {len(grads)} of {len(state.trainable)} fusion "
+          "parameters got a finite gradient")
+    for name in ("clb_pt", "logbinomial_depth"):
+        check(forward[name] == 3 and backward[name] == 0,
+              f"losses: {name} launched {forward[name]} times forward and "
+              f"{backward[name]} in the backward, expected 3 and 0")
+    p = pred.detach()
+    c = coarse.detach()
+    gt, images = batch["crop_depths"], batch["crops_image_hr"]
+    mask = (gt > 1e-3) & (gt < 80.0)
+    p_up, c_up = (interpolate_nchw(x, tuple(gt.shape[-2:]),
+                                   align_corners=True) for x in (p, c))
+    labels = L.get_incoherent_mask(gt, hw, 1e-3, 80.0, c, True, True)
+    fns = {"silog": lambda: L.SILogLoss()(p, gt, 1e-3, 80.0),
+           "ssi": lambda: L.ScaleAndShiftInvariantLoss()(p_up, gt, mask),
+           "exist": lambda: L.ExistLoss()(L._sobel_grad_map(p_up),
+                                          L._sobel_grad_map(c_up), mask),
+           "ranking": lambda: L.EdgeguidedRankingLoss()(
+               p, gt, images, gt, generator=gen),
+           "error": lambda: L.ErrorLoss("incoh_grad_depth")(
+               probs, gt, c, 1e-3, 80.0),
+           "edge_cls": lambda: L.EdgeClsLoss()(probs, labels)}
+    ms = {name: _time_ms(fn, reps=10) for name, fn in fns.items()}
+    out = {"values": {k: v.item() for k, v in card.items()},
+           "card_vs_cpu_rel": rels, "ms": ms,
+           "launches_forward": {k: forward[k] for k in
+                                ("clb_pt", "logbinomial_depth")},
+           "launches_backward": {k: backward[k] for k in
+                                 ("clb_pt", "logbinomial_depth")}}
+    say(f"surface: research losses on a vitl --amp prediction (B=4, "
+        f"{hw[0]}x{hw[1]}): values {json.dumps(out['values'])}; card vs CPU "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in rels.items()})} "
+        f"(tolerance {LOSS_TOL}); {len(grads)} finite gradients; one call "
+        f"on CUDA events {json.dumps({k: round(v, 4) for k, v in ms.items()})}"
+        " ms; head launches 3 + 3 forward, 0 backward")
+    del state, net, pred, card
+    torch.cuda.empty_cache()
+    return out
+
+
+def _demo_train(root: Path) -> dict:
+    """(d): configs/demo/train_fusion_synth_vitl.py through tools.train
+    (its main, in-process: what `python -m` runs) on the synthetic scenes,
+    one epoch at the config's batch of 2 with train_remat: finite losses,
+    images/s over the epoch's wall, the peak."""
+    import torch
+    from patchfusion_tpu_torch.tools import train as train_cli
+
+    torch.cuda.empty_cache()
+    argv = [str(ROOT / DEMO_CONFIG), "--seed", "0", "--work-dir",
+            str(root / "demo"), "--cfg-options", *_demo_options(root)]
+    t = time.perf_counter()
+    with attn_impl("einsum"):
+        trainer = train_cli.main(argv)
+    wall = time.perf_counter() - t
+    (epoch,) = trainer.epoch_stats
+    losses = epoch["losses"]
+    check(trainer.state.step == 2 and len(losses) == 2
+          and all(map(math.isfinite, losses)),
+          f"demo: {trainer.state.step} steps, losses {losses}")
+    out = {"losses": losses, "epoch_s": epoch["seconds"],
+           "images_per_s": 2 * epoch["steps"] / epoch["seconds"],
+           "peak_gib": epoch["peak_allocated_bytes"] / 2**30,
+           "step_s": epoch["step_seconds"], "wall_s": wall}
+    say(f"surface: demo recipe (vitl, batch 2, train_remat, f32) on the "
+        f"synthetic scenes: 2 steps, losses {losses}, "
+        f"{out['images_per_s']:.3f} images/s over the epoch's "
+        f"{epoch['seconds']:.2f} s, peak allocated {out['peak_gib']:.2f} "
+        f"GiB, {wall:.1f} s with the build")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _module(name: str, *args: str) -> float:
+    """`python -m patchfusion_tpu_torch.tools.<name> ARGS` from the
+    repository's root; returns its seconds."""
+    t = time.perf_counter()
+    subprocess.run([sys.executable, "-m",
+                    f"patchfusion_tpu_torch.tools.{name}", *args],
+                   cwd=ROOT, check=True, timeout=600)
+    return time.perf_counter() - t
+
+
+def _m1(model):
+    """The m1 depth of image 0 with the einsum attention."""
+    lr, hr = _images(model, 0)
+    with attn_impl("einsum"):
+        return model.infer(lr, hr, cai_mode="m1", process_num=PROCESS_NUM)
+
+
+def _export(model, root: Path, ref) -> dict:
+    """(b): the seeded vitl model's weights (a full weights file, bf16)
+    through tools.export_hub and PatchFusion.from_pretrained on the card:
+    the m1 depth bitwise equal; a fusion-only export (from save) holds
+    exactly the fusion keys."""
+    import torch
+    from patchfusion_tpu_torch.api import PatchFusion
+    from patchfusion_tpu_torch.engine.checkpoint import save_weights
+    from patchfusion_tpu_torch.models.patchfusion import FROZEN_KEYS
+
+    cfg_file = str(ROOT / VITL_CONFIG)
+    weights, snap = root / "vitl_weights.pt", root / "snapshot"
+    t = time.perf_counter()
+    save_weights(str(weights), model.net)
+    save_s = time.perf_counter() - t
+    export_s = _module("export_hub", cfg_file, "--weights", str(weights),
+                       "--out-dir", str(snap))
+    size = (snap / "pytorch_model.bin").stat().st_size
+    weights.unlink()
+    t = time.perf_counter()
+    loaded = PatchFusion.from_pretrained(str(snap), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    got = _m1(loaded)
+    check(np.array_equal(got, ref), "export: from_pretrained m1 differs "
+          "from the live model's")
+    del loaded
+    torch.cuda.empty_cache()
+    shutil.rmtree(snap)
+    fusion, fsnap = root / "fusion.pt", root / "fusion_snapshot"
+    model.save(str(fusion))
+    fusion_s = _module("export_hub", cfg_file, "--weights", str(fusion),
+                       "--out-dir", str(fsnap))
+    keys = set(torch.load(fsnap / "pytorch_model.bin", weights_only=True))
+    want = {k for k in model.net.state_dict()
+            if k.split(".")[0] not in FROZEN_KEYS}
+    check(keys == want, f"export: the fusion-only snapshot holds "
+          f"{len(keys)} keys, not the {len(want)} fusion keys")
+    out = {"weights_write_s": save_s, "export_s": export_s,
+           "snapshot_bytes": size, "from_pretrained_s": load_s,
+           "fusion_export_s": fusion_s, "fusion_keys": len(keys)}
+    say(f"surface: export_hub: weights file written in {save_s:.1f} s, "
+        f"snapshot {size} bytes written by `python -m ...export_hub` in "
+        f"{export_s:.1f} s, from_pretrained (bf16, card) in {load_s:.1f} s, "
+        f"m1 bitwise equal to the live model's; fusion-only export "
+        f"{len(keys)} keys in {fusion_s:.1f} s")
+    return out
+
+
+def _convert(model, root: Path) -> dict:
+    """(c): the vitl model's published-layout .pth triple through
+    tools.convert_checkpoint; the model loaded from that one file (the
+    CLIs' loader, load_dict) gives the m1 depth of
+    from_config(ckpts=triple), bitwise."""
+    import torch
+    from patchfusion_tpu_torch.api import PatchFusion
+    from patchfusion_tpu_torch.tools.test import load_patchfusion
+
+    triple = _write_triple(model.net, root)
+    path = root / "converted.pt"
+    convert_s = _module("convert_checkpoint", str(ROOT / VITL_CONFIG),
+                        "--coarse", triple[0], "--fine", triple[1],
+                        "--fusion", triple[2], "--save-path", str(path))
+    t = time.perf_counter()
+    # the vitl config sets load_branch with pretrain_model paths that do
+    # not exist here: a full file must not need them
+    one = load_patchfusion(model.config, str(path), "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    got = _m1(one)
+    del one
+    t = time.perf_counter()
+    three = PatchFusion.from_config(model.config, dtype=torch.bfloat16,
+                                    ckpts=triple)
+    triple_s = time.perf_counter() - t
+    want = _m1(three)
+    del three
+    torch.cuda.empty_cache()
+    check(np.array_equal(got, want), "convert: the converted file's m1 "
+          "differs from from_config(ckpts=triple)'s")
+    size = path.stat().st_size
+    for p in (path, *map(Path, triple)):
+        p.unlink()
+    out = {"convert_s": convert_s, "file_bytes": size, "load_s": load_s,
+           "from_config_triple_s": triple_s}
+    say(f"surface: convert_checkpoint of the vitl .pth triple in "
+        f"{convert_s:.1f} s ({size} bytes), loaded by the CLIs' loader in "
+        f"{load_s:.1f} s; m1 bitwise equal to from_config(ckpts=triple) "
+        f"(built in {triple_s:.1f} s)")
+    return out
+
+
+def _trace_launches(trace_dir: Path) -> dict:
+    """Kernel events in the directory's one Chrome trace, by port kernel."""
+    (path,) = trace_dir.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {"clb_pt": sum("clb_" in n for n in kernels),
+            "logbinomial_depth": sum("logbinomial_depth" in n
+                                     for n in kernels),
+            "kernels": len(kernels), "trace_bytes": path.stat().st_size}
+
+
+def _profiling(model, root: Path, attempts: int = 3) -> dict:
+    """(e): 3 warm m1 requests under SectionTimer, synchronised on the
+    card; one under trace(dir): the Chrome trace names 9 clb_pt and 9
+    logbinomial_depth launches (traced again, up to `attempts` times,
+    where the profiler lost launches, as _device_ms does)."""
+    import torch
+    from patchfusion_tpu_torch.utils.profiling import SectionTimer, trace
+
+    lr, hr = _images(model, 1)
+    engine = model.engine(PROCESS_NUM)
+    want = _want(_tiles(model.tile_cfg)["m1"])["clb_pt"]
+    timer = SectionTimer()
+    with attn_impl("einsum"):
+        engine.infer(lr, hr, cai_mode="m1")
+        for _ in range(3):
+            with timer.section("m1", sync=torch.device("cuda")):
+                engine.infer(lr, hr, cai_mode="m1")
+        for attempt in range(1, attempts + 1):
+            tdir = root / f"trace{attempt}"
+            reset_counts()
+            with trace(str(tdir)):
+                engine.infer(lr, hr, cai_mode="m1")
+                torch.cuda.synchronize()
+            launched = counts()
+            seen = _trace_launches(tdir)
+            if all(seen[k] == launched[k] for k in
+                   ("clb_pt", "logbinomial_depth")):
+                break
+            say(f"surface: the trace recorded {seen}, the wrappers "
+                f"launched {launched}; tracing again")
+    for name in ("clb_pt", "logbinomial_depth"):
+        check(launched[name] == want and seen[name] == want,
+              f"profiling: {name} launched {launched[name]} times, "
+              f"{seen[name]} in the trace, expected {want}")
+    out = {"sections": timer.summary(), "m1_s": timer.totals["m1"] / 3,
+           "trace": seen, "trace_attempts": attempt}
+    say(f"surface: SectionTimer over 3 warm m1:\n{timer.summary()}\n"
+        f"surface: trace of one m1: {json.dumps(seen)} (attempt {attempt})")
+    return out
+
+
+def _call_shim(model, ref) -> dict:
+    """(f): model("infer", image_lr=..., image_hr=...) on NCHW tensors on
+    the card: infer's m1 depth (its reensemble size, 1568x2072 for a
+    2160x3840 image), bitwise, as (1, 1, H, W) on the card."""
+    import torch
+
+    lr, hr = _images(model, 0)
+    lr_t = torch.from_numpy(lr).cuda().permute(0, 3, 1, 2)
+    hr_t = torch.from_numpy(hr).cuda().permute(2, 0, 1)[None]
+    with attn_impl("einsum"):
+        depth, log = model("infer", image_lr=lr_t, image_hr=hr_t,
+                           cai_mode="m1", process_num=PROCESS_NUM)
+    check(tuple(depth.shape) == (1, 1, *ref.shape) and depth.is_cuda,
+          f"call shim: depth {tuple(depth.shape)} on {depth.device}")
+    check(set(log) == {"rgb", "depth_pred"} and log["rgb"].is_cuda,
+          "call shim: log dict")
+    check(np.array_equal(depth[0, 0].cpu().numpy(), ref),
+          "call shim: depth differs from infer's")
+    say(f"surface: model('infer', ...) on NCHW card tensors: "
+        f"{tuple(depth.shape)} on the card, bitwise equal to infer's m1")
+    return {"shape": list(depth.shape)}
+
+
+def phase_surface() -> dict:
+    """Phase surface: the rest of the JAX package's surface on the card."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="pf_surface_") as tmp:
+        root = Path(tmp)
+        data = root / "u4k_synth"
+        out.update(_synth_data(data))
+        out["losses"] = _surface_losses(data)
+        out["demo"] = _demo_train(data)
+        model = build_vitl()
+        ref = _m1(model)
+        out["export"] = _export(model, root, ref)
+        out["convert"] = _convert(model, root)
+        out["profiling"] = _profiling(model, root)
+        out["call"] = _call_shim(model, ref)
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    say("surface summary: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase beit: the BEiT ZoeDepth family (configs/patchfusion_zoedepth)
 # ---------------------------------------------------------------------------
 
@@ -2461,7 +2939,7 @@ def main(argv) -> int:
         return 0
 
     t0 = time.perf_counter()
-    phase_card()
+    card = phase_card()
     if argv:
         rows = phase_time_only(root)
         say(f"total: {time.perf_counter() - t0:.1f} s")
@@ -2479,6 +2957,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_tiny()
     tr = phase_train()
+    surface = phase_surface()
     beit_launches, _ = phase_beit()
     torch.cuda.empty_cache()
     dist_out = phase_dist()
@@ -2504,7 +2983,14 @@ def main(argv) -> int:
                         "launches": launches[name],
                         **({"launches_eval": ev["launches"][name],
                             "launches_train":
-                                tr["fusion"]["launches"][name]}
+                                tr["fusion"]["launches"][name],
+                            "launches_surface": {
+                                "losses_forward": surface["losses"][
+                                    "launches_forward"][name],
+                                "losses_backward": surface["losses"][
+                                    "launches_backward"][name],
+                                "traced_m1": surface["profiling"]["trace"][
+                                    name]}}
                            if name in ("clb_pt", "logbinomial_depth")
                            else {}),
                         **({"launches_dist": {
@@ -2548,6 +3034,8 @@ def main(argv) -> int:
                             "library_host_us")
                            if key in r}})
     say(f"total: {time.perf_counter() - t0:.1f} s")
+    # the card again, so that the end of a long run's output holds it
+    say(card.splitlines()[0] if card else "nvidia-smi: no card listed")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

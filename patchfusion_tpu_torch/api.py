@@ -221,6 +221,39 @@ class PatchFusion:
             rand_origins=rand_origins)
         return depth.cpu().numpy()
 
+    def __call__(self, mode: str = "infer", image_lr=None, image_hr=None,
+                 cai_mode: str = "m1", process_num: int = 4, tile_cfg=None,
+                 **kwargs):
+        """The reference's call signature (patchfusion.py:359-453):
+        image_lr (1, 3, h, w) and image_hr (1, 3, H, W), NCHW tensors or
+        arrays in [0, 1]; tile_cfg: an optional dict with image_raw_shape
+        and patch_split_num. Returns (depth (1, 1, H', W'), {"rgb":
+        image_lr, "depth_pred": depth}), tensors on the model's device.
+        Other keyword arguments are ignored, as in the JAX package."""
+        assert mode == "infer", "use engine/training for the train path"
+        tc = self.tile_cfg
+        if tile_cfg is not None:
+            tc = TileConfig(
+                tuple(tile_cfg.get("image_raw_shape") or tc.image_raw_shape),
+                tuple(tile_cfg.get("patch_split_num")
+                      or tc.patch_split_num), tc.patch_process_shape)
+        depth = self.engine(process_num, tc).infer(
+            _to_nhwc(image_lr), _to_nhwc(image_hr)[0], cai_mode=cai_mode)
+        depth = depth[None, None]
+        rgb = torch.as_tensor(image_lr).to(depth.device)
+        return depth, {"rgb": rgb, "depth_pred": depth}
+
+
+def _to_nhwc(x) -> np.ndarray:
+    """An (N, 3, H, W) tensor or array as an NHWC float32 numpy array;
+    anything else as it is (the JAX package's rule)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().float().numpy()
+    x = np.asarray(x, np.float32)
+    if x.ndim == 4 and x.shape[1] == 3:
+        return np.moveaxis(x, 1, -1)
+    return x
+
 
 class _FineOnly:
     """The PatchFusionNet surface the fusion-less engine calls

@@ -9,7 +9,9 @@ os.replace'd, as the JAX package writes its files:
     reference's get_save_dict, patchfusion.py:179-187): epoch, step,
     the trainable parameters, the BatchNorm statistics and the optimizer
     state (with the schedule's position, `step`), by state_dict names;
-  * `save_params` (weights only: params and, where given, batch_stats).
+  * `save_params` (weights only: params and, where given, batch_stats);
+    `save_weights` writes a whole net's state dict so (the output of
+    tools/convert_checkpoint.py, every key of the net).
 
 It reads no flax msgpack file (the JAX package's `.ckpt` and params
 files): those raise, saying so.
@@ -133,6 +135,21 @@ def save_params(path: str, params: Dict[str, torch.Tensor],
     _write(path, payload)
 
 
+def save_weights(path: str, net: nn.Module) -> None:
+    """Every entry of net.state_dict() that holds values (a net built on
+    the meta device and loaded with assign=True may hold some) as a weights
+    file (save_params): the fusion BatchNorms' statistics as batch_stats,
+    the rest (parameters and buffers) as params, in their own dtypes."""
+    from patchfusion_tpu_torch.engine.training import batch_stats
+
+    stat_names = set(batch_stats(net))
+    params, stats = {}, {}
+    for k, v in net.state_dict().items():
+        if not v.is_meta:
+            (stats if k in stat_names else params)[k] = v
+    save_params(path, params, stats)
+
+
 def load_params(path: str) -> Dict[str, Any]:
     """A save_params file as its dict (tensors on the CPU)."""
     blob = _read(path)
@@ -238,17 +255,22 @@ def fit_rel_pos_tables(net: nn.Module, sd: Dict[str, torch.Tensor]
 
 
 def load_branch_state_dict(branch: nn.Module,
-                           sd: Dict[str, torch.Tensor]) -> None:
+                           sd: Dict[str, torch.Tensor],
+                           assign: bool = False) -> None:
     """A reference branch checkpoint into a ZoeDepth branch, strictly,
-    its BEiT tables fitted to the branch's grid (fit_rel_pos_tables)."""
-    branch.load_state_dict(fit_rel_pos_tables(branch, sd), strict=True)
+    its BEiT tables fitted to the branch's grid (fit_rel_pos_tables).
+    assign: take the dict's tensors as the branch's (a branch on the meta
+    device)."""
+    branch.load_state_dict(fit_rel_pos_tables(branch, sd), strict=True,
+                           assign=assign)
 
 
-def load_fusion_state_dict(net: nn.Module, sd: Dict[str, torch.Tensor]
-                           ) -> None:
+def load_fusion_state_dict(net: nn.Module, sd: Dict[str, torch.Tensor],
+                           assign: bool = False) -> None:
     """Merge a fusion-only state dict over `net` (strict=False): missing
-    keys keep their values; keys that are not the net's raise."""
-    res = net.load_state_dict(sd, strict=False)
+    keys keep their values; keys that are not the net's raise. assign: as
+    load_branch_state_dict."""
+    res = net.load_state_dict(sd, strict=False, assign=assign)
     if res.unexpected_keys:
         raise ValueError(f"fusion checkpoint has {len(res.unexpected_keys)} "
                          f"unexpected keys, e.g. {res.unexpected_keys[:3]}")
@@ -256,16 +278,21 @@ def load_fusion_state_dict(net: nn.Module, sd: Dict[str, torch.Tensor]
 
 def load_patchfusion_from_torch(net: nn.Module, coarse_path: str,
                                 fine_path: str,
-                                fusion_path: Optional[str] = None) -> None:
+                                fusion_path: Optional[str] = None,
+                                assign: bool = False) -> None:
     """Load the reference's three checkpoints into a PatchFusionNet: each
     branch file strictly into its branch (reference patchfusion.py:105-109),
     then the fusion-only file, where one is given (load_dict strict=False);
-    without one the fusion part keeps its current weights."""
+    without one the fusion part keeps its current weights. assign: take
+    the files' tensors as the net's (a net on the meta device; what no
+    file holds stays there)."""
     load_branch_state_dict(net.coarse_branch,
-                           load_torch_state_dict(coarse_path))
-    load_branch_state_dict(net.fine_branch, load_torch_state_dict(fine_path))
+                           load_torch_state_dict(coarse_path), assign)
+    load_branch_state_dict(net.fine_branch, load_torch_state_dict(fine_path),
+                           assign)
     if fusion_path:
-        load_fusion_state_dict(net, load_torch_state_dict(fusion_path))
+        load_fusion_state_dict(net, load_torch_state_dict(fusion_path),
+                               assign)
 
 
 def read_hub_state_dict(path: str) -> Dict[str, torch.Tensor]:

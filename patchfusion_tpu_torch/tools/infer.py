@@ -5,7 +5,8 @@ tiled inference, save colorized and uint16 depth PNGs.
     python -m patchfusion_tpu_torch.tools.infer IMAGE [--ckp-path CKP] \
         [--config CFG] [--cai-mode m1] [--out depth.png]
 
---ckp-path: a local snapshot directory or 'coarse.pth,fine.pth[,fusion.pth]'
+--ckp-path: a local snapshot directory, 'coarse.pth,fine.pth[,fusion.pth]' or
+one of the port's weights files (tools.convert_checkpoint, PatchFusion.save)
 (random seeded weights without). As tools/infer.py, less --chunk-policy,
 plus --device (default cuda) and --dtype (default bfloat16), as in
 patchfusion_tpu_torch.tools.test.

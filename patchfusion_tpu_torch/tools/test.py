@@ -7,9 +7,10 @@ tools/test.py):
 --ckp-path takes a local snapshot directory (config.json +
 pytorch_model.bin or model.safetensors), the reference's comma-separated
 'coarse.pth,fine.pth[,fusion.pth]', or one of the port's own files
-(engine/checkpoint.py: a training '.ckpt' or a weights file), which is
-fusion-only and merges over the branches (seeded, or the config's
-`pretrain_model` files where `load_branch` is set), as tools/test.py does;
+(engine/checkpoint.py: a training '.ckpt' or a weights file), which,
+fusion-only, merges over the branches (seeded, or the config's
+`pretrain_model` files where `load_branch` is set), as tools/test.py does,
+or, full (tools.convert_checkpoint), replaces every weight;
 for a BaselinePretrain config, one branch '.pth' or a weights file of
 tools/train_branch.py. Without it the weights are random (seeded). The JAX
 package's msgpack files are not read: they raise.
@@ -74,19 +75,27 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def load_patchfusion(config, ckp: Optional[str], device,
                      dtype: torch.dtype):
     """PatchFusion with the weights of --ckp-path: a local snapshot
-    directory (its own config.json), the .pth triple over `config`, or one
-    of the port's fusion-only files merged over the branches; without one,
-    seeded random weights."""
+    directory (its own config.json), the .pth triple over `config`, one
+    of the port's fusion-only files merged over the branches, or a full
+    weights file of tools.convert_checkpoint (no branch files read);
+    without one, seeded random weights."""
     from patchfusion_tpu_torch.api import PatchFusion
+    from patchfusion_tpu_torch.engine.checkpoint import read_weights
+    from patchfusion_tpu_torch.models.patchfusion import FROZEN_KEYS
 
     if ckp and os.path.isdir(ckp):
         return PatchFusion.from_pretrained(ckp, device=device, dtype=dtype)
     ckpts = None
     if ckp and "," not in ckp:
-        # the port's own fusion-only file, over the branches (tools/test.py
-        # of the JAX package: load_checkpoint's trainable over from_config)
-        if config.get("load_branch") and config.get("pretrain_model"):
+        # the port's own file: a fusion-only one over the branches
+        # (tools/test.py of the JAX package: load_checkpoint's trainable
+        # over from_config), or a full one (tools.convert_checkpoint)
+        params, _ = read_weights(ckp)
+        full = any(k.split(".")[0] in FROZEN_KEYS for k in params)
+        if not full and config.get("load_branch") \
+                and config.get("pretrain_model"):
             ckpts = (*config["pretrain_model"][:2], None)
+        del params
         model = PatchFusion.from_config(config, device=device, ckpts=ckpts)
         model.load_dict(ckp)
         model.net.to(dtype)

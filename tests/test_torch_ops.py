@@ -145,10 +145,15 @@ def test_roi_align_batched_matches_jax():
     np.testing.assert_allclose(got, want, **TOL)
 
 
-def test_roi_align_rejects_other_sampling_ratios():
+@pytest.mark.parametrize("fn", ["roi_align_single", "roi_align_batched"])
+@pytest.mark.parametrize("ratio", [None, 0, -1])
+def test_roi_align_rejects_other_sampling_ratios(fn, ratio):
+    """No grid count (None: the JAX package asks for a static one) and
+    counts below 1 raise; ratios >= 1 are held against JAX in
+    tests/test_torch_surface.py."""
     with pytest.raises(ValueError):
-        roi_align.roi_align_single(torch.zeros(4, 4, 1), torch.zeros(1, 4),
-                                   4, 4, 1.0, sampling_ratio=2)
+        getattr(roi_align, fn)(torch.zeros(1, 4, 4, 1), torch.zeros(1, 4),
+                               4, 4, 1.0, sampling_ratio=ratio)
 
 
 def test_avg_map_matches_jax():
