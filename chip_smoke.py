@@ -19,10 +19,11 @@
    N = 1037, H = 16, Dh = 64) and at the vitmicro width (Dh = 32) on
    strided qkv views, in all three roundings, each closer to its own
    rounding's twin than to the other two on inputs where the roundings
-   part. Each function is timed four ways (_timings): ms, one call between
-   CUDA events (host work included); ms_batched, per call over runs of 20
-   back-to-back calls; device_ms, the profiler's kernel time per call
-   (device_events: the device events it recorded over its 20 calls);
+   part. Each function is timed four ways (_bench_util.timings): ms, one
+   call between CUDA events (host work included); ms_batched, per call
+   over runs of 20 back-to-back calls; device_ms, the profiler's kernel
+   time per call (device_events: the device events it recorded over its
+   20 calls);
    host_us, the host's time to issue one call. Each row carries its bound
    and bound_share (bound_ms / ms).
 4. Builds DA-vitl PatchFusion at full width from
@@ -101,7 +102,21 @@
    trace names 9 clb_pt and 9 logbinomial_depth launches; (f)
    model("infer", image_lr=..., image_hr=...) on NCHW card tensors:
    infer's m1 depth (1568x2072 from 2160x3840) as (1, 1, H, W), bitwise.
-11. The BEiT ZoeDepth family (phase `beit`,
+11. The stage profilers (phase `profile`): each of
+   patchfusion_tpu_torch/tools/profile_{infer,stages,fine,trunk,stitch,
+   train,attn,clb,compile}.py through its main, DA-vitl bf16 at the main
+   path's chunk and batch of 4 (profile_infer with the einsum and then the
+   kernel attention; profile_train with --amp; profile_compile building
+   the kernels cold into a temporary directory, m1 and m2 with
+   --process-num 4), few iterations: every row finite and positive, no
+   share of the peak over 100%, the trunk's counted FLOPs per tile within
+   1% of 24 N D^2 L + 4 N^2 D L, profile_infer's counts equal on both
+   attention paths (true by construction: count_flops always counts the
+   einsum path, and raises on the card where a kernel launched under the
+   count that it did not credit), and profile_attn with profile_clb
+   launching all four kernels; the p49 projection is printed beside step 4's m2 request and
+   the profiled train step beside phase train's (unchecked).
+12. The BEiT ZoeDepth family (phase `beit`,
    configs/patchfusion_zoedepth): (a) the head kernels against their twins
    at the BEiT head's shapes (B = 1 and 4, 384x512 from 192x256, K = 64,
    f32 and bf16, channels-last and NCHW views, the tolerances of step 3),
@@ -124,7 +139,7 @@
    time; (e) two fusion-stage steps at batch 4 with --amp on one fixed
    batch: finite losses, 3 + 3 head launches a step, the step time on the
    device's clock and the peak.
-12. Scale-out over torch.distributed (phase `dist`; child processes of
+13. Scale-out over torch.distributed (phase `dist`; child processes of
    this script, `--dist-child PART DIR`, with torchrun's variables, each
    with a time limit that kills them all): (a) one rank over nccl at
    world 1: the tiny config's m1 through the tile split on cuda:0
@@ -143,12 +158,12 @@
    sharding the scenes, its gathered metrics within 1e-4 of one
    process's; walls, step times on CUDA events and peaks per rank. Two
    ranks on one card show the collectives, not a speed-up.
-13. Prints one JSON line with the kernels' launches (the main path's, and
-   for the head kernels the eval phase's, the training steps', phase
-   surface's, the 2-rank tile split's per rank and the BEiT path's with
-   their BEiT-shape rows), errors, times (the head kernels' recompute
-   backward too) and bounds, then {"ok": true, "device": {...}} as the
-   last line.
+14. Prints one JSON line with the kernels' launches (the main path's,
+   phase profile's, and for the head kernels the eval phase's, the
+   training steps', phase surface's, the 2-rank tile split's per rank and
+   the BEiT path's with their BEiT-shape rows), errors, times (the head
+   kernels' recompute backward too) and bounds, then {"ok": true,
+   "device": {...}} as the last line.
 
 Any failed check raises, so the script exits non-zero without the last line.
 It needs one CUDA card and nothing but this repository.
@@ -222,12 +237,30 @@ SNAPSHOT_TOL = 1e-6  # from_pretrained vs the seeded model, rel. to max
 # contract rounds the residual stream, q, k, v and the probabilities
 BLOCK_TOL = 3e-2
 BEIT_BLOCK = (4, (24, 32), 1024, 16)  # B, grid, width, heads
-# NVIDIA H100 SXM data-sheet peaks (dense): the least time a kernel's work
-# could take is the largest of its bytes, tensor-core FLOPs and other f32
-# operations over these rates
-HBM_BYTES_S = 3.35e12
-BF16_TC_FLOPS = 989e12
-F32_FLOPS = 67e12
+
+
+def _load_bench_util():
+    """This checkout's patchfusion_tpu_torch/tools/_bench_util.py (the
+    timers, the bounds over the H100's data-sheet peaks and the FLOP
+    count), loaded by its path: it imports the package only inside its
+    functions, so that with --time-only DIR the package comes from DIR,
+    which may predate the file."""
+    import importlib.util
+
+    path = ROOT / "patchfusion_tpu_torch" / "tools" / "_bench_util.py"
+    if not path.is_file():
+        raise SystemExit("chip_smoke.py needs the repository around it "
+                         f"({path.relative_to(ROOT)} not found in {ROOT})")
+    spec = importlib.util.spec_from_file_location("pf_bench_util", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+bench = _load_bench_util()
+bound, head_bounds, attention_bound, attn_impl, counts = (
+    bench.bound, bench.head_bounds, bench.attention_bound, bench.attn_impl,
+    bench.launch_counts)
 
 
 def tiny_config():
@@ -340,63 +373,6 @@ def reset_counts() -> None:
             d[name] = 0
 
 
-def counts() -> dict:
-    out = {}
-    for d in _count_dicts():
-        out.update(d)
-    return out
-
-
-@contextlib.contextmanager
-def attn_impl(impl: str):
-    """PF_ATTN_IMPL set in this process for the block, restored after."""
-    old = os.environ.get("PF_ATTN_IMPL")
-    os.environ["PF_ATTN_IMPL"] = impl
-    try:
-        yield
-    finally:
-        if old is None:
-            del os.environ["PF_ATTN_IMPL"]
-        else:
-            os.environ["PF_ATTN_IMPL"] = old
-
-
-def bound(nbytes: float, tc_flops: float = 0.0, f32_ops: float = 0.0):
-    """(bound_ms, bound_by): the largest of the bytes over HBM bandwidth,
-    the tensor-core FLOPs over the bf16 tensor-core peak and the other f32
-    operations over the f32 peak."""
-    times = {"bytes": nbytes / HBM_BYTES_S,
-             "operations": max(tc_flops / BF16_TC_FLOPS, f32_ops / F32_FLOPS)}
-    by = max(times, key=times.get)
-    return times[by] * 1e3, by
-
-
-def head_bounds(b, oh, ow, ih, iw, k, cin, cc, hid, itemsize):
-    """Bounds of the three head kernels for one input shape. Bytes: each
-    input read once, each output written once. Operations: the MLP's
-    products at the tensor-core rate with the condition projected at its
-    low resolution (the cheaper order), and per (pixel, bin) ~16 f32
-    operations of the log-binomial softmax, the centers' bilinear taps and
-    the weighted sum."""
-    hi, lo = b * oh * ow, b * ih * iw
-    mlp = 2 * hid * (cin * hi + cc * lo) + 2 * hid * 4 * hi
-    lb_ops = 16 * k * hi
-    return {
-        "clb_pt": bound(itemsize * (cin * hi + cc * lo) + 8 * hi, mlp),
-        "logbinomial_depth": bound(8 * hi + itemsize * k * lo + 4 * hi, 0,
-                                   lb_ops),
-        "clb_logbinomial_depth": bound(
-            itemsize * (cin * hi + (cc + k) * lo) + 4 * hi, mlp, lb_ops)}
-
-
-def attention_bound(b, n, h, dh):
-    """q, k, v read and o written in bf16; QK^T and PV at the tensor-core
-    rate; ~6 f32 operations per score (round, max, subtract, exp, round,
-    sum)."""
-    return bound(4 * b * n * h * dh * 2, 4 * b * h * n * n * dh,
-                 6 * b * h * n * n)
-
-
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -429,111 +405,6 @@ def phase_build():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say("  ptxas:", line.split("ptxas info    :")[-1].strip())
     return secs
-
-
-def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Median over `reps` single calls, CUDA events around each: the
-    call's host work (argument checks, tensor maps, the launch) counts
-    where the card would otherwise wait for it."""
-    import torch
-
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def _time_batched_ms(fn, calls: int = 20, reps: int = 7) -> float:
-    """Median over `reps` of the mean time of `calls` back-to-back calls,
-    CUDA events around each run: a call's host work is hidden behind the
-    card's queue unless it is slower than the kernel."""
-    import torch
-
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(calls):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / calls)
-    return float(np.median(times))
-
-
-def _host_us(fn, calls: int = 20, reps: int = 5) -> float:
-    """Median over `reps` of the host's time per call to issue `calls`
-    back-to-back calls (the card is idle at the start and never waited
-    for), in microseconds."""
-    import torch
-
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        times.append((time.perf_counter() - t) / calls * 1e6)
-        torch.cuda.synchronize()
-    return float(np.median(times))
-
-
-# substrings of the port's kernels' names in a profile
-PORT_KERNEL_NAMES = ("vit_attention_kernel", "clb_", "logbinomial_depth")
-
-
-def _device_ms(fn, calls: int = 20, attempts: int = 3):
-    """-> (kernel time per call on the card, profiling windows used, device
-    events recorded): the sum of the durations of the device events
-    torch.profiler records over `calls` calls, divided by `calls`. A
-    window is profiled again, up to `attempts` windows, where the profiler
-    delivered no device event at all (it has happened once in this
-    script's runs, on an SDPA row that other runs recorded), or fewer
-    events of the port's kernels than the wrappers launched (late in a
-    full run it has recorded 6 of a row's 20 launches, and all of the
-    other kernels); none complete fails."""
-    import torch
-
-    for window in range(1, attempts + 1):
-        torch.cuda.synchronize()
-        before = sum(counts().values())
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        launched = sum(counts().values()) - before
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        ours = sum(any(k in e.name for k in PORT_KERNEL_NAMES)
-                   for e in events)
-        us = sum(e.time_range.end - e.time_range.start for e in events)
-        if us > 0 and ours == launched:
-            return us / calls / 1e3, window, len(events)
-        say(f"the profiler recorded {len(events)} device events, {ours} of "
-            f"the {launched} launches of the port's kernels; profiling "
-            "again")
-    check(False, f"the profiler lost device events in {attempts} windows")
-
-
-def _timings(fn, prefix: str = "") -> dict:
-    """The four times of fn (see the module note), keys prefixed."""
-    out = {"ms": _time_ms(fn)}
-    out["ms_batched"] = _time_batched_ms(fn)
-    out["device_ms"], out["device_windows"], out["device_events"] = \
-        _device_ms(fn)
-    out["host_us"] = _host_us(fn)
-    return {prefix + k: v for k, v in out.items()}
 
 
 def _nchw_view(x_nhwc_np, dtype, device):
@@ -649,19 +520,20 @@ def _head_kernels(results, shape=HEAD_SHAPE, family=None):
                 frow = {"max_abs_err": e_d, "rel_err": rel_d,
                         "rel_to_two_kernels": rel_two}
                 if layout == "nchw-view":
-                    row.update(_timings(
+                    row.update(bench.timings(
                         lambda: fh.logbinomial_depth(pt, tt, ct)))
-                    row["plain_ms"] = _time_ms(
+                    row["plain_ms"] = bench.time_ms(
                         lambda: fh.logbinomial_depth_plain(pt, tt, ct))
-                    crow.update(_timings(lambda: fh.clb_pt(lt, cdt, *wl)))
-                    crow["plain_ms"] = _time_ms(
+                    crow.update(bench.timings(
+                        lambda: fh.clb_pt(lt, cdt, *wl)))
+                    crow["plain_ms"] = bench.time_ms(
                         lambda: fh.clb_pt_plain(lt, cdt, *wl))
-                    frow.update(_timings(
+                    frow.update(bench.timings(
                         lambda: fh.clb_logbinomial_depth(lt, cdt, ct, *wl)))
-                    frow["plain_ms"] = _time_ms(
+                    frow["plain_ms"] = bench.time_ms(
                         lambda: fh.clb_logbinomial_depth_plain(lt, cdt, ct,
                                                                *wl))
-                    frow["two_kernels_ms"] = _time_ms(
+                    frow["two_kernels_ms"] = bench.time_ms(
                         lambda: fh.logbinomial_depth(
                             *fh.clb_pt(lt, cdt, *wl), ct))
                 for name, r in (("logbinomial_depth", row), ("clb_pt", crow),
@@ -755,8 +627,8 @@ def _attention_kernel(results):
     for b, n, h, dh in ATTN_SHAPES:
         q, k, v = _qkv(b, n, h, dh)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = _timings(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                        "library_")
+        sdpa = bench.timings(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt), "library_")
         apart = _rounding_apart(b, n, h, dh)
         for label, (fn, rounding) in _attention_wrappers().items():
             def kernel(fn=fn):
@@ -775,8 +647,8 @@ def _attention_kernel(results):
                    "max_abs_out": ref.float().abs().max().item(),
                    "mean_err_own_rounding": apart[label][0],
                    "mean_err_nearest_other_rounding": apart[label][1],
-                   **_timings(kernel),
-                   "plain_ms": _time_ms(
+                   **bench.timings(kernel),
+                   "plain_ms": bench.time_ms(
                        lambda: va.vit_attention_plain(q, k, v, *rounding)),
                    **sdpa}
             row["bound_ms"], row["bound_by"] = attention_bound(b, n, h, dh)
@@ -832,7 +704,7 @@ def phase_time_only(root: Path) -> dict:
             lambda: va.vit_attention_mxsum(q, k, v, bf16_exp=True),
         "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt),
     }
-    rows = {name: _timings(fn) for name, fn in fns.items()}
+    rows = {name: bench.timings(fn) for name, fn in fns.items()}
     for name, row in rows.items():
         say(f"time-only {name}: " + json.dumps(row))
     return rows
@@ -920,7 +792,8 @@ def _want(n_tiles, vit_blocks=(0, 0)):
 
 
 def phase_full_width(model):
-    """DA-vitl at 2160x3840 in bf16, einsum attention: three m1, one m2."""
+    """DA-vitl at 2160x3840 in bf16, einsum attention: three m1, one m2.
+    Returns the launches, the m1 depths and the m2 request's ms."""
     import torch
 
     n_tiles = _tiles(model.tile_cfg)
@@ -936,7 +809,7 @@ def phase_full_width(model):
     say(f"m1 latency: cold {m1[0][0]:.1f} ms, warm {m1[1][0]:.1f} / "
         f"{m1[2][0]:.1f} ms; m2 latency {m2:.1f} ms; peak allocated "
         f"{peak / 2**30:.2f} GiB")
-    return launches, [d for _, d in m1]
+    return launches, [d for _, d in m1], m2
 
 
 def phase_pallas_path(model, einsum_depths):
@@ -1363,15 +1236,15 @@ def _head_gradients():
                   f"twin's (tolerance {tol})")
             errs.append(rel)
         args = [a.detach() for _, a in got]
-        device_ms, windows, _ = _device_ms(lambda: torch.autograd.grad(
+        device_ms, windows, _ = bench.device_ms(lambda: torch.autograd.grad(
             out, leaves, cot, retain_graph=True))
         row = {"max_grad_rel_err": max(errs),
-               "forward_ms": _time_ms(lambda: wrapper(*args)),
-               "backward_ms": _time_ms(lambda: torch.autograd.grad(
+               "forward_ms": bench.time_ms(lambda: wrapper(*args)),
+               "backward_ms": bench.time_ms(lambda: torch.autograd.grad(
                    out, leaves, cot, retain_graph=True)),
                "backward_device_ms": device_ms,
                "backward_device_windows": windows,
-               "twin_backward_ms": _time_ms(lambda: torch.autograd.grad(
+               "twin_backward_ms": bench.time_ms(lambda: torch.autograd.grad(
                    ref, [leaf for leaf, _ in want], cot,
                    retain_graph=True))}
         rows[name] = row
@@ -1965,7 +1838,7 @@ def _surface_losses(root: Path) -> dict:
            "error": lambda: L.ErrorLoss("incoh_grad_depth")(
                probs, gt, c, 1e-3, 80.0),
            "edge_cls": lambda: L.EdgeClsLoss()(probs, labels)}
-    ms = {name: _time_ms(fn, reps=10) for name, fn in fns.items()}
+    ms = {name: bench.time_ms(fn, reps=10) for name, fn in fns.items()}
     out = {"values": {k: v.item() for k, v in card.items()},
            "card_vs_cpu_rel": rels, "ms": ms,
            "launches_forward": {k: forward[k] for k in
@@ -2141,7 +2014,7 @@ def _profiling(model, root: Path, attempts: int = 3) -> dict:
     """(e): 3 warm m1 requests under SectionTimer, synchronised on the
     card; one under trace(dir): the Chrome trace names 9 clb_pt and 9
     logbinomial_depth launches (traced again, up to `attempts` times,
-    where the profiler lost launches, as _device_ms does)."""
+    where the profiler lost launches, as _bench_util.device_ms does)."""
     import torch
     from patchfusion_tpu_torch.utils.profiling import SectionTimer, trace
 
@@ -2229,6 +2102,120 @@ def phase_surface() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase profile: the stage profilers (patchfusion_tpu_torch/tools/profile_*)
+# ---------------------------------------------------------------------------
+
+PROFILE_FLOPS_TOL = 0.01  # the trunk's counted FLOPs against the analytic
+PROFILE_KERNELS = ("clb_pt", "logbinomial_depth", "clb_logbinomial_depth",
+                   "vit_attention")
+
+
+def _profile_rows(name: str, out: dict) -> None:
+    """Every row's numbers finite and positive (the timer's own overhead
+    may read 0: an empty window between two events), no share of the peak
+    over 1."""
+    for row in out["rows"]:
+        low = 0 if row["name"].startswith("timer overhead") else 1e-9
+        for key in ("ms", "gflop", "tflops", "peak_share"):
+            if key in row:
+                check(bool(np.isfinite(row[key])) and row[key] >= low,
+                      f"{name}: row {row['name']!r} {key} {row[key]}")
+        check(row.get("peak_share", 0) <= 1,
+              f"{name}: row {row['name']!r} over the peak")
+
+
+def _free() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_profile(m2_ms: float, train: dict) -> dict:
+    """Phase profile: each stage profiler's main on the card at the main
+    path's chunk (DA-vitl, bf16, --chunk 4 / --batch 4, --process-num 4)
+    with few iterations. Checks every row; the trunk's counted FLOPs per
+    tile against the analytic 24 N D^2 L + 4 N^2 D L (7.32e11 at
+    392x518), within 1%; profile_infer's counts equal with the einsum and
+    the kernel attention (true by construction: count_flops counts the
+    einsum path whatever PF_ATTN_IMPL says, and checks on the card that
+    every head kernel launched under the count was credited and no
+    attention kernel launched); profile_attn and profile_clb launching all
+    four kernels. Prints the p49 projection beside step 4's m2 request and the
+    profiled train step beside phase train's, unchecked."""
+    from patchfusion_tpu_torch.tools import (profile_attn, profile_clb,
+                                             profile_compile, profile_fine,
+                                             profile_infer, profile_stages,
+                                             profile_stitch, profile_train,
+                                             profile_trunk)
+
+    t0 = time.perf_counter()
+    out = {}
+    reset_counts()
+    runs = (
+        ("infer", profile_infer, ["--chunk", "4", "--iters", "3"], "einsum"),
+        ("infer_pallas", profile_infer, ["--chunk", "4", "--iters", "3"],
+         "pallas"),
+        ("stages", profile_stages, ["--batches", "4", "--iters", "3"],
+         "einsum"),
+        ("fine", profile_fine, ["--batch", "4", "--inner", "3"], "einsum"),
+        ("trunk", profile_trunk, ["--batch", "4", "--inner", "5"], "einsum"),
+        ("stitch", profile_stitch, [], "einsum"),
+        ("train", profile_train, ["--batch", "4", "--amp", "--iters", "3"],
+         "einsum"),
+        ("attn", profile_attn, ["--batch", "4", "--inner", "10"], "einsum"),
+        ("clb", profile_clb, ["--batch", "4", "--inner", "5"], "einsum"),
+        ("compile", profile_compile, ["--process-num", "4"], "einsum"))
+    for name, module, argv, impl in runs:
+        if name == "attn":
+            before = counts()
+        t = time.perf_counter()
+        say(f"profile: python -m {module.__name__} {' '.join(argv)} "
+            f"(PF_ATTN_IMPL={impl})")
+        with attn_impl(impl):
+            out[name] = module.main(argv)
+        _free()
+        _profile_rows(name, out[name])
+        out[name]["seconds"] = time.perf_counter() - t
+        if name == "clb":
+            shoot_out = {k: counts()[k] - before[k] for k in PROFILE_KERNELS}
+            say(f"profile: profile_attn + profile_clb launches {shoot_out}")
+            for k, n in shoot_out.items():
+                check(n > 0, f"profile_attn / profile_clb never launched {k}")
+    launches = counts()
+    rows = {k: {r["name"]: r for r in out[k]["rows"]} for k in out}
+    # true by construction (count_flops counts the einsum path), kept so
+    # that a change to count_flops that breaks it shows here
+    for row in out["infer"]["rows"]:
+        other = rows["infer_pallas"][row["name"]]
+        check(row.get("gflop") == other.get("gflop"),
+              f"profile_infer {row['name']}: {row.get('gflop')} GFLOP with "
+              f"the einsum attention, {other.get('gflop')} with the kernel")
+    trunk = rows["stages"]["vit trunk"]
+    per_tile = trunk["gflop"] * 1e9 / trunk["batch"]
+    analytic = bench.dinovit_flops(1, 1037, 1024, 24)
+    say(f"profile: trunk {per_tile:.4g} counted FLOPs per tile, analytic "
+        f"24 N D^2 L + 4 N^2 D L = {analytic:.4g}")
+    check(abs(per_tile / analytic - 1) <= PROFILE_FLOPS_TOL,
+          f"trunk count {per_tile:.4g} vs analytic {analytic:.4g}")
+    p49 = rows["infer"]["p49 projection"]
+    say(f"profile: p49 projection {p49['ms']:.1f} ms (einsum), "
+        f"{rows['infer_pallas']['p49 projection']['ms']:.1f} ms (kernel "
+        f"attention); step 4's measured m2 request {m2_ms:.1f} ms")
+    step = out["train"]["rows"][1]
+    say(f"profile: profile_train warm step {step['ms']:.1f} ms, peak "
+        f"{step['peak_gib']:.2f} GiB; phase train's warm step "
+        f"{train['warm_step_s_median'] * 1e3:.1f} ms, peak "
+        f"{train['peak_gib']:.2f} GiB")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    say(f"profile: {out['seconds']:.1f} s; launches {launches}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase beit: the BEiT ZoeDepth family (configs/patchfusion_zoedepth)
 # ---------------------------------------------------------------------------
 
@@ -2266,8 +2253,8 @@ def _beit_block():
         torch.cuda.synchronize()
         rel = ((got - ref).abs().max() / ref.abs().max()).item()
         moved = ((ref - x).abs().max() / x.abs().max()).item()
-        ms16 = _time_ms(lambda: blk16(x16))
-        ms32 = _time_ms(lambda: blk(x))
+        ms16 = bench.time_ms(lambda: blk16(x16))
+        ms32 = bench.time_ms(lambda: blk(x))
     say(f"beit: one BEiT-L block (B={b}, N={grid[0] * grid[1] + 1}, D={d}, "
         f"H={h}) bf16 vs f32 on the card: max|diff|/max|f32| = {rel:.3g} "
         f"(tolerance {BLOCK_TOL}); the block moves its input by {moved:.3g} "
@@ -2949,7 +2936,7 @@ def main(argv) -> int:
     phase_build()
     kres = phase_kernels()
     model = build_vitl()
-    main_launches, einsum_depths = phase_full_width(model)
+    main_launches, einsum_depths, m2_ms = phase_full_width(model)
     pallas_launches = phase_pallas_path(model, einsum_depths)
     fused_launches = phase_depth_fused(model)
     ev = phase_eval(model)
@@ -2958,6 +2945,7 @@ def main(argv) -> int:
     phase_tiny()
     tr = phase_train()
     surface = phase_surface()
+    prof = phase_profile(m2_ms, tr["fusion"])
     beit_launches, _ = phase_beit()
     torch.cuda.empty_cache()
     dist_out = phase_dist()
@@ -2981,6 +2969,7 @@ def main(argv) -> int:
                         "source": KERNEL_SOURCES[name],
                         "replaces": REPLACES[name],
                         "launches": launches[name],
+                        "launches_profile": prof["launches"][name],
                         **({"launches_eval": ev["launches"][name],
                             "launches_train":
                                 tr["fusion"]["launches"][name],

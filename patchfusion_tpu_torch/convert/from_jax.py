@@ -129,6 +129,15 @@ def metric_bins_state_dict(p: Mapping, prefix: str = "") -> SD:
     return sd
 
 
+def linear_splitter_state_dict(p: Mapping, prefix: str = "") -> SD:
+    """A JAX LinearSplitter's net_0 / net_2 -> the reference's `_net.0` /
+    `_net.2` (models/zoedepth.LinearSplitter)."""
+    sd: SD = {}
+    inv_conv(sd, prefix + "_net.0", p["net_0"])
+    inv_conv(sd, prefix + "_net.2", p["net_2"])
+    return sd
+
+
 def zoedepth_state_dict(p: Mapping, depth: int, prefix: str) -> SD:
     sd = dinovit_state_dict(p["core"]["pretrained"], depth,
                             prefix + "core.core.pretrained.")

@@ -70,6 +70,8 @@ def _load() -> Optional[ctypes.CDLL]:
                                          f32p, i64, i64]
         lib.pf_resize_bilinear_ac.restype = None
         lib.pf_resize_bilinear_ac.argtypes = [f32p, f32p] + [i64] * 5
+        lib.pf_crop_resize.restype = None
+        lib.pf_crop_resize.argtypes = [f32p, f32p] + [i64] * 9
         _lib = lib
         return _lib
 
@@ -128,3 +130,18 @@ def resize_bilinear_ac(img: np.ndarray, oh: int, ow: int) -> np.ndarray:
     out = np.einsum("ph,hwc,qw->pqc", wh, img.astype(np.float32), ww)
     return out[..., 0] if squeeze else out
 
+
+def crop_resize(img: np.ndarray, y: int, x: int, ch: int, cw: int,
+                oh: int, ow: int) -> np.ndarray:
+    """Fused crop of rows y:y+ch, columns x:x+cw and bilinear
+    align_corners=True resize to (oh, ow) of a float32 HWC image; the numpy
+    path for non-contiguous or non-float32 input."""
+    lib = _load()
+    if lib is not None and img.dtype == np.float32 and \
+            img.flags["C_CONTIGUOUS"]:
+        h, w, c = img.shape
+        out = np.empty((oh, ow, c), np.float32)
+        lib.pf_crop_resize(_fptr(img), _fptr(out), h, w, c, y, x, ch, cw,
+                           oh, ow)
+        return out
+    return resize_bilinear_ac(img[y:y + ch, x:x + cw], oh, ow)

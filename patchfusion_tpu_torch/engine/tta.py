@@ -2,7 +2,8 @@
 reference external/zoedepth/models/depth_model.py:47-152): reflect-pad the
 input (pad = sqrt(dim/2)*3), resize to the minimal multiple, run, resize
 back bicubic and crop; optionally average with the horizontally flipped
-pass. Images are NHWC tensors, as in the JAX package."""
+pass. Images are NHWC tensors, as in the JAX package; `infer_pil` takes a
+PIL image."""
 
 from __future__ import annotations
 
@@ -53,3 +54,28 @@ def zoe_infer(apply_fn, x: torch.Tensor, pad_input: bool = True,
         out = (out + out_flip.flip(2)) / 2.0
     return out
 
+
+
+def infer_pil(apply_fn, pil_img, pad_input: bool = True,
+              with_flip_aug: bool = True, output_type: str = "numpy",
+              device="cuda"):
+    """PIL image convenience wrapper (depth_model.py:135-152): the image as
+    a (1, H, W, 3) float tensor in [0, 1] on `device` (the card unless the
+    caller asks for the CPU), through zoe_infer without gradients.
+    output_type "numpy": the (H, W) depth as a float32 array; "pil": a
+    uint16 image of depth * 256; "tensor": the (H, W) depth on `device`."""
+    if output_type not in ("numpy", "pil", "tensor"):
+        raise ValueError(f"output_type {output_type} not supported")
+    from patchfusion_tpu_torch.models.builder import check_device
+
+    x = torch.from_numpy(np.asarray(pil_img, np.float32)[None] / 255.0)
+    with torch.no_grad():
+        out = zoe_infer(apply_fn, x.to(check_device(device)), pad_input,
+                        with_flip_aug).squeeze()
+    if output_type == "tensor":
+        return out
+    out = out.float().cpu().numpy()
+    if output_type == "pil":
+        from PIL import Image
+        return Image.fromarray((out * 256).astype(np.uint16))
+    return out

@@ -173,3 +173,17 @@ class DinoViT(nn.Module):
             on = self.norm(o)
             result.append((on[:, 1:], on[:, 0]))
         return result
+
+
+def build_dinovit(core_type: str, dtype: torch.dtype = torch.float32,
+                  device="cuda") -> DinoViT:
+    """The DINOv2 ViT of a VIT_CONFIGS entry, built on `device` (the card
+    unless the caller asks for the CPU; raises where CUDA is missing) and
+    cast to `dtype`, in eval mode. Its parameters are the constructor's
+    (zeros); load weights or draw them (api.init_weights) before use."""
+    from patchfusion_tpu_torch.models.builder import check_device
+
+    device = check_device(device)
+    with torch.device(device):
+        net = DinoViT(**VIT_CONFIGS[core_type])
+    return net.to(dtype=dtype).eval()

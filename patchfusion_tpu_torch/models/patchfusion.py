@@ -13,8 +13,9 @@ engine/inference.py; the fusion stage's training forward is
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -79,6 +80,15 @@ class TileConfig:
         nw = (self.patch_reensemble_shape[1] - offset_process[1]) // pw
         return ([ph * i + offset_process[0] for i in range(nh)],
                 [pw * j + offset_process[1] for j in range(nw)])
+
+    def bboxes_for(self, origins_h: Sequence[int], origins_w: Sequence[int]
+                   ) -> np.ndarray:
+        """Raw-coordinate [x1, y1, x2, y2] boxes, float32, row-major over
+        (h, w)."""
+        ph, pw = self.patch_raw_shape
+        boxes = [[x, y, x + pw, y + ph]
+                 for y in origins_h for x in origins_w]
+        return np.array(boxes, np.float32)
 
     def bbox_to_process(self, boxes: torch.Tensor) -> torch.Tensor:
         """Raw -> process ("feature") coordinates (reference

@@ -92,6 +92,41 @@ class Projector(nn.Module):
         return self._net(x)
 
 
+class LinearSplitter(nn.Module):
+    """localbins_layers.py:121-169: splits each of `prev_nbins` bins into
+    `split_factor` fractions (registered in the reference layer zoo; no
+    shipped PatchFusion config uses it). Returns the normed widths
+    b (B, prev_nbins * split_factor, H, W) and their centers."""
+
+    def __init__(self, cin: int, prev_nbins: int, split_factor: int = 2,
+                 mlp_dim: int = 128, min_depth: float = 1e-3,
+                 max_depth: float = 10.0):
+        super().__init__()
+        self.prev_nbins = prev_nbins
+        self.split_factor = split_factor
+        self.min_depth = min_depth
+        self.max_depth = max_depth
+        self._net = nn.Sequential(
+            nn.Conv2d(cin, mlp_dim, 1), Gelu(),
+            nn.Conv2d(mlp_dim, prev_nbins * split_factor, 1), nn.ReLU())
+
+    def forward(self, x, b_prev, prev_b_embedding=None):
+        if prev_b_embedding is not None:
+            x = x + _up(prev_b_embedding, x.shape[-2:])
+        s = self._net(x) + 1e-3
+        n, _, h, w = s.shape
+        s = s.view(n, self.prev_nbins, self.split_factor, h, w)
+        s_normed = s / s.sum(dim=2, keepdim=True)
+        b_prev = _up(b_prev, (h, w))
+        b_prev = b_prev / b_prev.sum(dim=1, keepdim=True)
+        b = (b_prev[:, :, None] * s_normed).flatten(1, 2)
+        widths = (self.max_depth - self.min_depth) * b
+        widths = F.pad(widths, (0, 0, 0, 0, 1, 0), value=self.min_depth)
+        edges = torch.cumsum(widths, dim=1)
+        centers = 0.5 * (edges[:, :-1] + edges[:, 1:])
+        return b, centers
+
+
 def _attractor_dist(dx: torch.Tensor, attractor_type: str) -> torch.Tensor:
     """attractor.py:29-57. REFERENCE QUIRK, kept for checkpoint fidelity:
     the reference calls `dist(dx)` without alpha/gamma, so the TorchScript

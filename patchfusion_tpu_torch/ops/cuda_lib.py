@@ -48,18 +48,18 @@ def _find_nvcc() -> str:
     return found
 
 
-def build_kernels() -> Path:
-    """Compile csrc/*.cu into the shared library unless a build of these
-    exact sources and flags exists. Returns the library's path; nvcc's
-    output (with ptxas register and shared-memory use per kernel) is kept
-    beside it as nvcc.log."""
+def build_kernels(build_dir: Path = BUILD_DIR) -> Path:
+    """Compile csrc/*.cu into the shared library under `build_dir` (default
+    `_build/`) unless a build of these exact sources and flags exists
+    there. Returns the library's path; nvcc's output (with ptxas register
+    and shared-memory use per kernel) is kept beside it as nvcc.log."""
     h = hashlib.sha256()
     for f in sorted(CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
             h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    out_dir = BUILD_DIR / h.hexdigest()[:16]
+    out_dir = Path(build_dir) / h.hexdigest()[:16]
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib

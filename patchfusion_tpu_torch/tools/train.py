@@ -136,7 +136,7 @@ def main(argv: Optional[List[str]] = None):
     from patchfusion_tpu_torch.engine.trainer import Trainer
     from patchfusion_tpu_torch.engine.training import (create_train_state,
                                                        make_train_step)
-    from patchfusion_tpu_torch.utils.misc import (fix_random_seed,
+    from patchfusion_tpu_torch.utils.misc import (fix_random_seed, log_env,
                                                   rank_logger, setup_logger)
 
     cfg = load_config(args.config, args.cfg_options)
@@ -148,6 +148,7 @@ def main(argv: Optional[List[str]] = None):
         logger = setup_logger(log_file=os.path.join(work_dir, "train.log"))
     else:
         logger = rank_logger(setup_logger())
+    log_env(logger, device)
     fix_random_seed(args.seed)
     if args.use_wandb and is_main():
         try:

@@ -54,7 +54,7 @@ def main(argv: Optional[List[str]] = None):
                                                      is_main)
     from patchfusion_tpu_torch.tools.train import (build_loader, load_config,
                                                    make_optimizer)
-    from patchfusion_tpu_torch.utils.misc import (fix_random_seed,
+    from patchfusion_tpu_torch.utils.misc import (fix_random_seed, log_env,
                                                   rank_logger, setup_logger)
 
     device = init_rank(args.device, args.coordinator, args.num_processes,
@@ -68,6 +68,7 @@ def main(argv: Optional[List[str]] = None):
         logger = setup_logger(log_file=os.path.join(work_dir, "train.log"))
     else:
         logger = rank_logger(setup_logger())
+    log_env(logger, device)
 
     mcfg = cfg.model
     target = mcfg["target"]

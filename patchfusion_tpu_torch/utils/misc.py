@@ -1,17 +1,28 @@
 """Runtime utilities (patchfusion_tpu/utils/misc.py; reference
-estimator/utils/misc.py): seed fixing and the run logger."""
+estimator/utils/misc.py and runner.py): seed fixing, environment logging,
+the RunnerInfo attribute bag and the run logger."""
 
 from __future__ import annotations
 
 import logging
 import os
 import random
+import sys
 from typing import Optional
 
 import numpy as np
 import torch
 
-from patchfusion_tpu_torch.parallel.dist import rank
+from patchfusion_tpu_torch.parallel.dist import rank, world_size
+
+
+class RunnerInfo:
+    """Dynamic attribute bag threaded through train/test tools (reference
+    estimator/utils/runner.py:3-22)."""
+
+    def __init__(self, **kwargs):
+        for k, v in kwargs.items():
+            setattr(self, k, v)
 
 
 def fix_random_seed(seed: int) -> None:
@@ -21,6 +32,23 @@ def fix_random_seed(seed: int) -> None:
     np.random.seed(seed)
     torch.manual_seed(seed)
     os.environ["PYTHONHASHSEED"] = str(seed)
+
+
+def log_env(logger: logging.Logger, device=None) -> None:
+    """Log the runtime environment (reference misc.py:28-54): python, torch
+    and CUDA versions, the device in use (default the current CUDA device
+    where there is one, else the CPU) and this process's rank and world
+    size."""
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device()) \
+            if torch.cuda.is_available() else torch.device("cpu")
+    device = torch.device(device)
+    logger.info("python: %s", sys.version.replace("\n", ""))
+    logger.info("torch: %s, cuda: %s", torch.__version__, torch.version.cuda)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    logger.info("device: %s (%s)", device, name)
+    logger.info("rank: %d / %d", rank(), world_size())
 
 
 def setup_logger(name: str = "patchfusion_tpu_torch",
