@@ -7,14 +7,19 @@
 
 1. Prints the card (nvidia-smi name and power limit) and torch's version.
 2. Builds the CUDA kernels from patchfusion_tpu_torch/csrc with nvcc (one
-   nvcc per source, all started together) and prints their ptxas lines.
+   nvcc per source, all started together, with the timing build of
+   csrc/clb_depth.cu beside them) and prints their ptxas lines.
 3. Holds each kernel against its plain PyTorch twin at the main-path shapes
    and times kernel, twin and, where one exists, the one PyTorch call that
    computes the same function, with CUDA events:
    the head kernels at B = 1 and 4, output 392x518, low-res input 224x296,
    float32 and bfloat16, channels-last and permuted-NCHW inputs
    (logbinomial_depth within 2e-4 of max |depth| in both dtypes, on its
-   tiled kernel, the row naming the kernel that ran); the
+   tiled kernel, the row naming the kernel that ran;
+   clb_logbinomial_depth also within 1e-4 of the clb_pt +
+   logbinomial_depth pair it fuses, timed beside it, with its plan held
+   against the kernel's C side, at K = 128 too, and its timing build's
+   phase split at the DA and BEiT head shapes); the
    attention kernel at the vitl fine and coarse shapes (B = 4 and 1,
    N = 1037, H = 16, Dh = 64) and at the vitmicro width (Dh = 32) on
    strided qkv views, in all three roundings, each closer to its own
@@ -393,11 +398,21 @@ def phase_card():
 
 
 def phase_build():
+    """The kernel library and, started with it, the timing build of
+    csrc/clb_depth.cu (tools/clb_depth_split.py: clock64 stamps per phase,
+    -DPF_PHASE_TIMING; loaded only by _fused_split's child processes),
+    each one nvcc per source, all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from patchfusion_tpu_torch.ops import cuda_lib
+    from patchfusion_tpu_torch.tools import clb_depth_split
 
     t0 = time.perf_counter()
-    lib = cuda_lib.build_kernels()
-    cuda_lib.load_kernels()
+    with ThreadPoolExecutor(2) as pool:
+        timing = pool.submit(clb_depth_split.build_timing_library)
+        lib = cuda_lib.build_kernels()
+        cuda_lib.load_kernels()
+        timing.result()
     secs = time.perf_counter() - t0
     say(f"build: {secs:.1f} s -> {lib.relative_to(ROOT)}")
     log = (lib.parent / "nvcc.log").read_text()
@@ -499,7 +514,7 @@ def _head_kernels(results, shape=HEAD_SHAPE, family=None):
                         else "f32"}
                 if dtype == torch.bfloat16:
                     crow["tile_smem_bytes"] = fh.load_kernels() \
-                        .pf_clb_tc_smem(oh, ow, ih, iw, 0)
+                        .pf_clb_tc_smem(oh, ow, ih, iw)
                 # clb_logbinomial_depth, against its twin and against the
                 # two-kernel route it fuses
                 gd = fh.clb_logbinomial_depth(lt, cdt, ct, *wl)
@@ -519,6 +534,8 @@ def _head_kernels(results, shape=HEAD_SHAPE, family=None):
                       f"{rel_two:.3g} from clb_pt + logbinomial_depth")
                 frow = {"max_abs_err": e_d, "rel_err": rel_d,
                         "rel_to_two_kernels": rel_two}
+                if dtype == torch.bfloat16:
+                    frow["plan"] = _fused_plan(lt, cdt, ct)._asdict()
                 if layout == "nchw-view":
                     row.update(bench.timings(
                         lambda: fh.logbinomial_depth(pt, tt, ct)))
@@ -536,6 +553,10 @@ def _head_kernels(results, shape=HEAD_SHAPE, family=None):
                     frow["two_kernels_ms"] = bench.time_ms(
                         lambda: fh.logbinomial_depth(
                             *fh.clb_pt(lt, cdt, *wl), ct))
+                    # the pair's device time: its two kernels' rows above
+                    # (no profiling window more: late windows lose events)
+                    frow["two_kernels_device_ms"] = (crow["device_ms"]
+                                                     + row["device_ms"])
                 for name, r in (("logbinomial_depth", row), ("clb_pt", crow),
                                 ("clb_logbinomial_depth", frow)):
                     r["bound_ms"], r["bound_by"] = bounds[name]
@@ -549,6 +570,85 @@ def _head_kernels(results, shape=HEAD_SHAPE, family=None):
                     say(f"kernel {name} {dname} B={b} {layout}"
                         f"{f' ({family} head)' if family else ''}: "
                         + json.dumps(r))
+
+
+def _fused_plan(lt, cdt, ct):
+    """The wrapper's plan for the bf16 clb_logbinomial_depth kernel on
+    these inputs, held against the kernel's C side: the layout's bytes
+    (pf_clb_depth_smem) and the tile geometry, which the launch checks and
+    refuses where the plan does not cover a tile (the call above ran)."""
+    import ctypes
+
+    from patchfusion_tpu_torch.ops import fused_head as fh
+
+    _, oh, ow, cin = lt.shape
+    _, ih, iw, _ = cdt.shape
+    tma = (fh.TMA_COND * fh.tma_ok(cdt) + fh.TMA_CENT * fh.tma_ok(ct)
+           + fh.TMA_LAST * fh.tma_ok(lt))
+    plan = fh.clb_depth_plan(oh, ow, ih, iw, cin, ct.shape[-1], tma)
+    ints = (ctypes.c_int * len(plan))(*plan)
+    c_bytes = fh.load_kernels().pf_clb_depth_smem(ints, cin, ct.shape[-1])
+    check(c_bytes == plan.smem and plan.smem <= fh.SMEM_LIMIT,
+          f"clb_depth plan {plan}: the C layout takes {c_bytes} bytes")
+    return plan
+
+
+# the fused kernel's largest bin count, at the DA head's shape
+K128_SHAPE = (392, 518, 224, 296, 128, 33, 128, 80)
+
+
+def _fused_k128(results):
+    """clb_logbinomial_depth with K = 128 (the kernel's largest), bf16 and
+    f32, B = 4, NCHW views: against its twin and the two-kernel route."""
+    import torch
+    from patchfusion_tpu_torch.ops import fused_head as fh
+
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        _, _, ct, lt, cdt, wl = _head_inputs(4, dtype, "nchw-view", dev,
+                                             K128_SHAPE)
+        before = counts()["clb_logbinomial_depth"]
+        gd = fh.clb_logbinomial_depth(lt, cdt, ct, *wl)
+        check(counts()["clb_logbinomial_depth"] == before + 1,
+              "clb_logbinomial_depth K=128: not one launch")
+        rd = fh.clb_logbinomial_depth_plain(lt, cdt, ct, *wl)
+        two = fh.logbinomial_depth(*fh.clb_pt(lt, cdt, *wl), ct)
+        torch.cuda.synchronize()
+        rel_d = ((gd - rd).abs().max() / rd.abs().max()).item()
+        rel_two = ((gd - two).abs().max() / two.abs().max()).item()
+        check(bool(torch.isfinite(gd).all()), "K=128: non-finite output")
+        check(rel_d <= TOL[dname][1], f"clb_logbinomial_depth K=128 "
+              f"{dname}: rel err {rel_d:.3g} > {TOL[dname][1]}")
+        check(rel_two <= FUSED_TOL, f"clb_logbinomial_depth K=128 {dname}: "
+              f"{rel_two:.3g} from clb_pt + logbinomial_depth")
+        row = {"rel_err": rel_d, "rel_to_two_kernels": rel_two}
+        if dtype == torch.bfloat16:
+            row["plan"] = _fused_plan(lt, cdt, ct)._asdict()
+        results[("clb_logbinomial_depth", dname, "K=128")] = row
+        say(f"kernel clb_logbinomial_depth {dname} B=4 K=128: "
+            + json.dumps(row))
+
+
+def _fused_split(results):
+    """Where the fused kernel's time goes: its timing build's phase split
+    (tools/clb_depth_split.py, bf16, B = 4, NCHW views) at the DA and BEiT
+    head shapes, each in a child process: this process's profiler windows
+    stay clear of the timing build's kernels."""
+    for label, flags in (("da", []), ("beit", ["--beit"])):
+        proc = subprocess.run(
+            [sys.executable, "-m", "patchfusion_tpu_torch.tools."
+             "clb_depth_split", *flags], cwd=ROOT, capture_output=True,
+            text=True, timeout=600, check=False,
+            env={**os.environ, "PYTHONPATH": str(ROOT)})
+        check(proc.returncode == 0, f"clb_depth_split {label}: code "
+              f"{proc.returncode}\n{proc.stderr[-2000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        results[("clb_logbinomial_depth", "split", label)] = out
+        say(f"split clb_logbinomial_depth ({label} head, B=4, timing build "
+            f"{out['ms']:.4f} ms): " + json.dumps(
+                {r["phase"]: [round(r["share"], 4), round(r["ms"], 5)]
+                 for r in out["rows"]}))
 
 
 # (B, N, H, Dh): the vitl fine and coarse passes, and the vitmicro width
@@ -668,14 +768,17 @@ def phase_kernels():
     _head_kernels(results)
     _head_kernels(results, BEIT_HEAD_SHAPE, "beit")
     _attention_kernel(results)
+    _fused_k128(results)
+    _fused_split(results)
     return results
 
 
 def phase_time_only(root: Path) -> dict:
     """The B = 4 timings of step 3 for the kernels of the checkout at root
     (whose package is the one imported): bf16 nchw-view head kernels (and
-    logbinomial_depth at B = 1), the three attention wrappers at the vitl
-    fine shape, and SDPA."""
+    logbinomial_depth at B = 1; clb_logbinomial_depth and the clb_pt +
+    logbinomial_depth pair it fuses at the DA and BEiT head shapes), the
+    three attention wrappers at the vitl fine shape, and SDPA."""
     import torch
     import torch.nn.functional as F
     from patchfusion_tpu_torch.ops import cuda_lib
@@ -692,12 +795,20 @@ def phase_time_only(root: Path) -> dict:
     q, k, v = _qkv(*ATTN_SHAPES[0])
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     p1, t1, c1, *_ = _head_inputs(1, torch.bfloat16, "nchw-view", dev)
+    _, _, cb, lb, cdb, wb = _head_inputs(4, torch.bfloat16, "nchw-view", dev,
+                                         BEIT_HEAD_SHAPE)
     fns = {
         "clb_pt": lambda: fh.clb_pt(lt, cdt, *wl),
         "logbinomial_depth": lambda: fh.logbinomial_depth(pt, tt, ct),
         "logbinomial_depth(B=1)": lambda: fh.logbinomial_depth(p1, t1, c1),
         "clb_logbinomial_depth":
             lambda: fh.clb_logbinomial_depth(lt, cdt, ct, *wl),
+        "clb_pt+logbinomial_depth":
+            lambda: fh.logbinomial_depth(*fh.clb_pt(lt, cdt, *wl), ct),
+        "clb_logbinomial_depth(beit)":
+            lambda: fh.clb_logbinomial_depth(lb, cdb, cb, *wb),
+        "clb_pt+logbinomial_depth(beit)":
+            lambda: fh.logbinomial_depth(*fh.clb_pt(lb, cdb, *wb), cb),
         "vit_attention": lambda: va.vit_attention(q, k, v),
         "vit_attention_blocked": lambda: va.vit_attention_blocked(q, k, v),
         "vit_attention_mxsum(bf16_exp=True)":
@@ -2988,16 +3099,32 @@ def main(argv) -> int:
                             for mode in ("m1", "m2")}}
                            if name in ("clb_pt", "logbinomial_depth")
                            else {}),
-                        **({"launches_beit": beit_launches[name],
-                            "beit": {key: kres[(
-                                "beit", name, "bfloat16", 4, "nchw-view")]
-                                .get(key) for key in (
-                                "variant", "tile_smem_bytes", "max_abs_err",
-                                "ms", "ms_batched", "device_ms",
-                                "device_events", "plain_ms", "bound_ms",
-                                "bound_by", "bound_share_device")}}
+                        **({"launches_beit": beit_launches[name]}
                            if name in ("clb_pt", "logbinomial_depth")
                            else {}),
+                        **({"beit": {key: kres[(
+                            "beit", name, "bfloat16", 4, "nchw-view")]
+                            .get(key) for key in (
+                            "variant", "tile_smem_bytes", "plan",
+                            "max_abs_err", "ms", "ms_batched", "device_ms",
+                            "device_events", "plain_ms", "two_kernels_ms",
+                            "two_kernels_device_ms", "bound_ms", "bound_by",
+                            "bound_share_device") if key in kres[(
+                                "beit", name, "bfloat16", 4, "nchw-view")]}}
+                           if name != "vit_attention" else {}),
+                        **({"two_kernels_ms": r["two_kernels_ms"],
+                            "two_kernels_device_ms":
+                                r["two_kernels_device_ms"],
+                            "plan": r["plan"],
+                            "k128": kres[("clb_logbinomial_depth",
+                                          "bfloat16", "K=128")],
+                            "split": {label: {
+                                "timing_build_ms": kres[(
+                                    name, "split", label)]["ms"],
+                                "phases": {q["phase"]: q["ms"] for q in kres[
+                                    (name, "split", label)]["rows"]}}
+                                for label in ("da", "beit")}}
+                           if name == "clb_logbinomial_depth" else {}),
                         **({"backward_ms": tr["heads"][name]["backward_ms"],
                             "backward_device_ms":
                                 tr["heads"][name]["backward_device_ms"],

@@ -222,8 +222,8 @@ __device__ __forceinline__ float2 clb_pixel(
 
 // The K-entry table log C(K-1, k) in the reference's Stirling form
 // (dist_layers.py:29-33), in double as the host computes it; block-wide,
-// ends with __syncthreads. (The fused kernels fill it once per block; the
-// depth kernels take the wrapper's cached table.)
+// ends with __syncthreads. (The f32 fused kernel fills it once per block;
+// the other kernels take the wrapper's cached table.)
 __device__ __forceinline__ void fill_log_binom_c0(float* c0, int K) {
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     const double e = 1e-7;

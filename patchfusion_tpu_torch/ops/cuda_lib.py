@@ -48,17 +48,24 @@ def _find_nvcc() -> str:
     return found
 
 
-def build_kernels(build_dir: Path = BUILD_DIR) -> Path:
-    """Compile csrc/*.cu into the shared library under `build_dir` (default
-    `_build/`) unless a build of these exact sources and flags exists
-    there. Returns the library's path; nvcc's output (with ptxas register
-    and shared-memory use per kernel) is kept beside it as nvcc.log."""
+def build_kernels(build_dir: Path = BUILD_DIR, sources=None,
+                  defines=()) -> Path:
+    """Compile csrc/*.cu (or the named `sources` among them, with `-D`
+    `defines`: a timing build) into the shared library under `build_dir`
+    (default `_build/`) unless a build of these exact sources and flags
+    exists there. Returns the library's path; nvcc's output (with ptxas
+    register and shared-memory use per kernel) is kept beside it as
+    nvcc.log."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    srcs = sorted(CSRC.glob("*.cu")) if sources is None else \
+        [CSRC / name for name in sources]
     h = hashlib.sha256()
     for f in sorted(CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
             h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    h.update(" ".join(flags + LINK_FLAGS).encode())
+    h.update(" ".join(f.name for f in srcs).encode())
     out_dir = Path(build_dir) / h.hexdigest()[:16]
     lib = out_dir / LIB_NAME
     if lib.is_file():
@@ -69,9 +76,9 @@ def build_kernels(build_dir: Path = BUILD_DIR) -> Path:
     jobs = []
     log = []
     try:
-        for src in sorted(CSRC.glob("*.cu")):
+        for src in srcs:
             obj = out_dir / f"{src.stem}.{tag}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -115,17 +122,29 @@ def load_kernels() -> ctypes.CDLL:
             + [i32, vp, ctypes.POINTER(i32)])
         lib.pf_clb_pt.argtypes = (
             [vp] * 8 + [i32] * 9 + [i64] * 8 + [f32, i32, vp])
-        lib.pf_clb_logbinomial_depth.argtypes = (
-            [vp] * 8 + [i32] * 10 + [i64] * 12 + [f32] * 3 + [i32, vp])
+        bind_clb_depth(lib)
         lib.pf_vit_attention.argtypes = (
             [vp] * 4 + [i32] * 4 + [i64] * 9 + [f32] + [i32] * 3 + [vp])
         for fn in (lib.pf_logbinomial_depth, lib.pf_clb_pt,
-                   lib.pf_clb_logbinomial_depth, lib.pf_vit_attention):
+                   lib.pf_vit_attention):
             fn.restype = i32
-        lib.pf_clb_tc_smem.argtypes = [i32] * 5
+        lib.pf_clb_tc_smem.argtypes = [i32] * 4
+        lib.pf_clb_depth_smem.argtypes = [ctypes.POINTER(i32), i32, i32]
+        lib.pf_clb_depth_smem.restype = i32
         lib.pf_clb_tc_smem.restype = i64
         _lib = lib
     return _lib
+
+
+def bind_clb_depth(lib: ctypes.CDLL) -> None:
+    """Argument types of pf_clb_logbinomial_depth, in the kernel library
+    or a timing build of csrc/clb_depth.cu alone."""
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float)
+    lib.pf_clb_logbinomial_depth.argtypes = (
+        [vp] * 9 + [i32, ctypes.POINTER(i32)] + [i32] * 9 + [i64] * 12
+        + [f32] * 3 + [i32, vp])
+    lib.pf_clb_logbinomial_depth.restype = i32
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,8 @@ channels-last copies.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Iterator, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +40,7 @@ import torch.nn.functional as F
 
 from patchfusion_tpu_torch.ops.cuda_lib import (load_kernels, on_cpu,
                                                 raise_on, stream)
-from patchfusion_tpu_torch.ops.resize import interpolate
+from patchfusion_tpu_torch.ops.resize import _source_coords, interpolate
 
 CLB_HIDDEN = 80  # the hidden width csrc/common.cuh is compiled for
 
@@ -270,7 +271,7 @@ def _clb_pt(last_cat: torch.Tensor, cond_lo: torch.Tensor, w1: torch.Tensor,
     b, oh, ow, cin = last_cat.shape
     _, ih, iw, cc = cond_lo.shape
     if last_cat.dtype == torch.bfloat16:
-        _check_clb_bf16(oh, ow, ih, iw, cin, cc, 0)
+        _check_clb_bf16(oh, ow, ih, iw, cin, cc)
     p = torch.empty((b, oh, ow), dtype=torch.float32, device=last_cat.device)
     t = torch.empty_like(p)
     err = load_kernels().pf_clb_pt(
@@ -314,26 +315,28 @@ CLB_BF16_CC = 128       # and its condition channels
 SMEM_LIMIT = 227 * 1024  # shared memory one block may use on the H100
 
 
-def _check_clb_bf16(oh: int, ow: int, ih: int, iw: int, cin: int, cc: int,
-                    k: int) -> None:
-    """What the bf16 clb kernels (clb_pt, and with k bins
-    clb_logbinomial_depth) take beyond _check_clb: up to 48 input channels,
-    128 condition channels, up to 128 bins (staged in the condition's
-    buffer), and an upsample (IH <= OH, IW <= OW) steep enough that an
-    8 x 32 output tile's low-resolution footprint fits in shared memory
-    beside the weights (upsampling by about 1.2 or more; the head upsamples
-    by ~1.75)."""
+def _check_clb_channels(oh: int, ow: int, ih: int, iw: int, cin: int,
+                        cc: int) -> None:
+    """What both bf16 clb kernels take beyond _check_clb: up to 48 input
+    channels, 128 condition channels, and an upsample (IH <= OH,
+    IW <= OW)."""
     if not 0 < cin <= CLB_BF16_MAX_CIN or cc != CLB_BF16_CC:
-        raise ValueError(f"the bf16 clb_pt kernel takes 1-{CLB_BF16_MAX_CIN} "
+        raise ValueError(f"the bf16 clb kernels take 1-{CLB_BF16_MAX_CIN} "
                          f"input and {CLB_BF16_CC} condition channels, got "
                          f"{cin} and {cc}")
-    if k > CLB_BF16_CC:
-        raise ValueError(f"the bf16 clb_logbinomial_depth kernel takes up to "
-                         f"{CLB_BF16_CC} bins, got {k}")
     if ih > oh or iw > ow:
-        raise ValueError(f"the bf16 clb_pt kernel upsamples; got {ih}x{iw} "
+        raise ValueError(f"the bf16 clb kernels upsample; got {ih}x{iw} "
                          f"-> {oh}x{ow}")
-    need = load_kernels().pf_clb_tc_smem(oh, ow, ih, iw, k)
+
+
+def _check_clb_bf16(oh: int, ow: int, ih: int, iw: int, cin: int,
+                    cc: int) -> None:
+    """What the bf16 clb_pt kernel takes: _check_clb_channels, and an
+    upsample steep enough that an 8 x 32 output tile's low-resolution
+    footprint fits in shared memory beside the weights (upsampling by
+    about 1.4 or more; the heads upsample by ~1.75 and 2)."""
+    _check_clb_channels(oh, ow, ih, iw, cin, cc)
+    need = load_kernels().pf_clb_tc_smem(oh, ow, ih, iw)
     if need > SMEM_LIMIT:
         raise ValueError(f"upsample {ih}x{iw} -> {oh}x{ow} too shallow for "
                          f"the bf16 clb_pt kernel: its tile footprint needs "
@@ -364,7 +367,8 @@ def clb_logbinomial_depth(last_cat: torch.Tensor, cond_lo: torch.Tensor,
                           ) -> torch.Tensor:
     """Depth of the whole ConditionalLogBinomial stage in one launch:
     logbinomial_depth(*clb_pt(last_cat, cond_lo, w1, b1, w2, b2, p_eps),
-    centers, min_temp, max_temp), with p and t kept in registers.
+    centers, min_temp, max_temp), with p and t kept on the chip (the bf16
+    kernel computes both to the bit as the two kernels do).
 
     last_cat: (B, OH, OW, Cin); cond_lo: (B, IH, IW, Cc) and centers
     (B, IH, IW, K) at the same low resolution; all three float32 or all
@@ -391,6 +395,21 @@ def _clb_logbinomial_depth(last_cat: torch.Tensor, cond_lo: torch.Tensor,
         return clb_logbinomial_depth_plain(last_cat, cond_lo, centers, w1,
                                            b1, w2, b2, min_temp, max_temp,
                                            p_eps)
+    out = clb_depth_launch(load_kernels(), last_cat, cond_lo, centers, w1,
+                           b1, w2, b2, min_temp, max_temp, p_eps)
+    LAUNCHES["clb_logbinomial_depth"] += 1
+    return out
+
+
+def clb_depth_launch(lib, last_cat: torch.Tensor, cond_lo: torch.Tensor,
+                     centers: torch.Tensor, w1: torch.Tensor,
+                     b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                     min_temp: float, max_temp: float,
+                     p_eps: float) -> torch.Tensor:
+    """Checks CUDA inputs and launches `lib`'s pf_clb_logbinomial_depth
+    once (the kernel library, or a timing build of csrc/clb_depth.cu);
+    counts nothing. bf16 inputs take clb_depth_plan's plan (raising where
+    none fits), with TMA copies for the maps tma_ok allows."""
     weights = _check_clb(last_cat, cond_lo, w1, b1, w2, b2)
     _check_dense_nhwc(centers, "centers")
     if centers.dtype != last_cat.dtype:
@@ -402,19 +421,134 @@ def _clb_logbinomial_depth(last_cat: torch.Tensor, cond_lo: torch.Tensor,
     if tuple(centers.shape[:3]) != (b, ih, iw):
         raise ValueError(f"centers must be (B, IH, IW, K) = ({b}, {ih}, {iw},"
                          f" K) like cond_lo, got {tuple(centers.shape)}")
-    if not 0 < k <= 4096:  # the c0 table sits beside W1 in shared memory
+    if not 0 < k <= 4096:  # the f32 kernel's c0 table sits beside W1
         raise ValueError(f"unsupported bin count {k}")
+    plan = (ctypes.c_int * len(ClbDepthPlan._fields))()
     if last_cat.dtype == torch.bfloat16:
-        _check_clb_bf16(oh, ow, ih, iw, cin, cc, k)
+        _check_clb_channels(oh, ow, ih, iw, cin, cc)
+        if k > CLB_DEPTH_MAX_BINS:
+            raise ValueError(f"the bf16 clb_logbinomial_depth kernel takes "
+                             f"up to {CLB_DEPTH_MAX_BINS} bins, got {k}")
+        tma = (TMA_COND * tma_ok(cond_lo) + TMA_CENT * tma_ok(centers)
+               + TMA_LAST * tma_ok(last_cat))
+        plan[:] = clb_depth_plan(oh, ow, ih, iw, cin, k, tma)
     out = torch.empty((b, oh, ow), dtype=torch.float32,
                       device=last_cat.device)
-    err = load_kernels().pf_clb_logbinomial_depth(
+    err = lib.pf_clb_logbinomial_depth(
         last_cat.data_ptr(), cond_lo.data_ptr(), centers.data_ptr(),
-        *(w.data_ptr() for w in weights), out.data_ptr(),
-        int(last_cat.dtype == torch.bfloat16), b, oh, ow, ih, iw, cin, cc, k,
-        CLB_HIDDEN, *last_cat.stride(), *cond_lo.stride(), *centers.stride(),
-        float(p_eps), float(min_temp), float(max_temp),
+        *(w.data_ptr() for w in weights),
+        _c0_table(k, last_cat.device).data_ptr(), out.data_ptr(),
+        int(last_cat.dtype == torch.bfloat16), plan, b, oh, ow, ih, iw, cin,
+        cc, k, CLB_HIDDEN, *last_cat.stride(), *cond_lo.stride(),
+        *centers.stride(), float(p_eps), float(min_temp), float(max_temp),
         last_cat.device.index, stream(last_cat.device))
     raise_on(err, "clb_logbinomial_depth")
-    LAUNCHES["clb_logbinomial_depth"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the bf16 clb_logbinomial_depth kernel's plan (csrc/clb_depth.cu's Plan,
+# field for field; the kernel checks it before each launch)
+# ---------------------------------------------------------------------------
+
+CLB_DEPTH_MAX_BINS = 128
+CLB_DEPTH_TW = 32                  # tile columns
+CLB_DEPTH_TILE_ROWS = (8, 4)       # tile rows, in the order tried
+CLB_DEPTH_MAX_CHUNK = 64           # bins per H-lerp chunk, at most
+CLB_DEPTH_DEPTH_WARPS = 4
+# ClbDepthPlan.tma bits: the maps the kernel copies by TMA boxes
+TMA_COND, TMA_CENT, TMA_LAST = 1, 2, 4
+
+
+class ClbDepthPlan(NamedTuple):
+    th: int      # tile rows
+    fy: int      # footprint rows of a tile, at most
+    fx: int      # footprint columns of a tile, at most
+    ws: int      # staged footprint columns: fx + 7 rounded up to 8
+    tma: int     # TMA_* bits
+    kc: int      # bins per H-lerp chunk (even)
+    smem: int    # bytes of shared memory
+
+
+def tma_ok(t: torch.Tensor) -> bool:
+    """Whether the kernel can copy a bf16 (B, H, W, C) view by TMA boxes: a
+    permuted NCHW tensor (each channel's H W pixels contiguous) whose base
+    and channel and batch strides are 16-byte aligned, with at most 256
+    channels (a box's limit)."""
+    b, h, w, c = t.shape
+    return (t.stride(2) == 1 and t.stride(1) == w and c <= 256
+            and t.data_ptr() % 16 == 0
+            and all((2 * t.stride(d)) % 16 == 0 for d in (0, 3)))
+
+
+def align_corners_taps(out_size: int, in_size: int
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """(i0, i1) per output index of an out -> in bilinear align_corners
+    resize, as the kernels take them (pf::align_corners_tap: the source
+    coordinate in float32, clipped, floored)."""
+    src = np.clip(_source_coords(out_size, in_size, True), 0, in_size - 1)
+    i0 = np.floor(src).astype(np.int64)
+    return i0, np.minimum(i0 + 1, in_size - 1)
+
+
+def tile_footprints(out_size: int, in_size: int, tile: int
+                    ) -> Iterator[Tuple[int, int, int]]:
+    """(first output, first source index, source span) of each tile of
+    `tile` outputs along one axis: the tile's taps cover source indices
+    first .. first + span - 1 (the kernel's window for the tile)."""
+    i0, i1 = align_corners_taps(out_size, in_size)
+    for o in range(0, out_size, tile):
+        last = min(o + tile, out_size) - 1
+        yield o, int(i0[o]), int(i1[last] - i0[o] + 1)
+
+
+def clb_depth_smem(th: int, fy: int, fx: int, ws: int, kc: int, cin: int,
+                   k: int) -> int:
+    """Bytes of shared memory of the kernel's layout (csrc/clb_depth.cu
+    layout(): W1 hi + lo, W2, b1, b2, c0 and its pairs, the mbarriers; the
+    last_cat tile, the condition footprint, its f32 projection, the two p /
+    t slots, the centers footprint, the depth warps' H-lerped rows; 128 for
+    the base's alignment)."""
+    def a128(n):
+        return (n + 127) & ~127
+    k2 = k + (k & 1)
+    hid, cc = CLB_HIDDEN, 128
+    o = (2 * hid * (48 + cc + 8) * 2 + 8 * (hid + 8) * 2 + hid * 4 + 16
+         + ((4 * k + 15) & ~15) + k2 // 2 * 16 + 32)
+    o = a128(o) + th * a128(cin * (CLB_DEPTH_TW + 8) * 2)
+    o += fy * cc * ws * 2 + fy * fx * (hid + 8) * 4
+    o = a128(o + 2 * 2 * CLB_DEPTH_TW * th * 4)
+    o += fy * a128(k * ws * 2)
+    return o + CLB_DEPTH_DEPTH_WARPS * fx * ((kc // 2) | 1) * 8 + 128
+
+
+@functools.lru_cache(maxsize=64)
+def clb_depth_plan(oh: int, ow: int, ih: int, iw: int, cin: int, k: int,
+                   tma: int) -> ClbDepthPlan:
+    """The bf16 kernel's plan for this shape: the first of 8 and 4 tile
+    rows, with the largest H-lerp chunk of bins (at most 64, at least 16
+    where either height allows it), whose buffers fit the H100's 227 KB of
+    shared memory; the footprint rows and columns are the largest over the
+    shape's tiles, a staged row holds 7 columns more (a TMA box starts on
+    the 8-pixel boundary at or before the footprint) rounded up to 8;
+    `tma` names the maps copied by TMA (TMA_* bits, from tma_ok). Raises
+    ValueError where none fits (an upsample too shallow for the tiles'
+    footprints). Cached per shape: the wrapper asks on every call."""
+    fx = max(span for _, _, span in tile_footprints(ow, iw, CLB_DEPTH_TW))
+    ws = (fx + 14) // 8 * 8
+    need = None
+    top = min(k + (k & 1), CLB_DEPTH_MAX_CHUNK)
+    # chunks of at least 16 bins where either tile height allows them
+    for low in (min(16, top), 2):
+        for th in CLB_DEPTH_TILE_ROWS:
+            fy = max(span for _, _, span in tile_footprints(oh, ih, th))
+            for kmax in range(top, low - 1, -2):
+                chunks = -(-k // kmax)
+                kc = -(-(-(-k // chunks)) // 2) * 2
+                smem = clb_depth_smem(th, fy, fx, ws, kc, cin, k)
+                if smem <= SMEM_LIMIT:
+                    return ClbDepthPlan(th, fy, fx, ws, tma, kc, smem)
+                need = smem if need is None else min(need, smem)
+    raise ValueError(f"upsample {ih}x{iw} -> {oh}x{ow} too shallow for the "
+                     f"bf16 clb_logbinomial_depth kernel: its smallest tile "
+                     f"needs {need} bytes of shared memory")

@@ -7,6 +7,8 @@ neither JAX nor the JAX package, so it runs on a machine without them:
 (--noconftest: tests/conftest.py sets up JAX for the rest of the suite).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -40,7 +42,7 @@ def test_kernels_match_twins(cuda, dtype, layout):
     """f32 differs by float reassociation only (2e-4: p and t absolute,
     depth relative to max); bf16 also by the clb kernels' bf16 rounding of
     the bottleneck and GELU, which the f32 twin does not do (2e-2). The
-    fused clb_logbinomial_depth runs the same device bodies as clb_pt then
+    fused clb_logbinomial_depth runs the arithmetic of clb_pt then
     logbinomial_depth, so it matches that route to 1e-4 of max."""
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     rng = np.random.default_rng(0)
@@ -115,6 +117,63 @@ def test_clb_pt_matches_twin(cuda, dtype, layout, b, oh, ow, ih, iw):
     assert bool(torch.isfinite(got_p).all() and torch.isfinite(got_t).all())
     assert (got_p - ref_p).abs().max().item() <= tol
     assert (got_t - ref_t).abs().max().item() <= tol
+
+
+# (B, OH, OW, IH, IW, K) of the fused clb_logbinomial_depth: both heads'
+# shapes at B = 1 and 4, K = 128 (its largest; 4-row tiles at this shape),
+# an odd K, and outputs ragged in both axes at ~1.75x and ~3.2x
+FUSED_SHAPES = {
+    "head_b1": (1, 392, 518, 224, 296, 64),
+    "head_b4": (4, 392, 518, 224, 296, 64),
+    "beit_head_b1": (1, 384, 512, 192, 256, 64),
+    "beit_head_b4": (4, 384, 512, 192, 256, 64),
+    "head_k128": (2, 392, 518, 224, 296, 128),
+    "ragged_k63": (2, 45, 70, 26, 40, 63),
+    "ragged_3x": (3, 47, 61, 15, 20, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nhwc", "nchw-view"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(FUSED_SHAPES))
+def test_clb_logbinomial_depth_matches_twin_and_pair(cuda, dtype, layout,
+                                                     shape):
+    """The fused kernel, one launch, against its twin (2e-4 f32, 2e-2 bf16,
+    relative to max) and against clb_pt then logbinomial_depth (1e-4: the
+    bf16 kernel runs their arithmetic; NCHW views take its TMA copies,
+    NHWC its element loads); its plan's bytes are the C layout's."""
+    b, oh, ow, ih, iw, k = FUSED_SHAPES[shape]
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    rng = np.random.default_rng(oh + k)
+    centers = _nhwc(rng.random((b, ih, iw, k), dtype=np.float32) * 70 + 1,
+                    dtype, cuda, layout)
+    last = _nhwc(rng.standard_normal((b, oh, ow, CIN), dtype=np.float32),
+                 dtype, cuda, layout)
+    cond = _nhwc(rng.standard_normal((b, ih, iw, CC), dtype=np.float32),
+                 dtype, cuda, layout)
+    ws = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32) * 0.1)
+          .to(cuda, dtype) for s in ((CIN + CC, HID), (HID,), (HID, 4),
+                                     (4,))]
+    before = fused_head.LAUNCHES["clb_logbinomial_depth"]
+    got = fused_head.clb_logbinomial_depth(last, cond, centers, *ws)
+    assert fused_head.LAUNCHES["clb_logbinomial_depth"] == before + 1
+    ref = fused_head.clb_logbinomial_depth_plain(last, cond, centers, *ws)
+    two = fused_head.logbinomial_depth(*fused_head.clb_pt(last, cond, *ws),
+                                       centers)
+    torch.cuda.synchronize()
+    assert got.shape == (b, oh, ow) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+    assert (got - two).abs().max().item() <= 1e-4 * two.abs().max().item()
+    if dtype == torch.bfloat16:
+        tma = sum(bit * fused_head.tma_ok(x) for bit, x in (
+            (fused_head.TMA_COND, cond), (fused_head.TMA_CENT, centers),
+            (fused_head.TMA_LAST, last)))
+        plan = fused_head.clb_depth_plan(oh, ow, ih, iw, CIN, k, tma)
+        ints = (ctypes.c_int * len(plan))(*plan)
+        assert fused_head.load_kernels().pf_clb_depth_smem(
+            ints, CIN, k) == plan.smem
 
 
 def _depth_inputs(b, oh, ow, ih, iw, k, dtype, dev, layout, seed):

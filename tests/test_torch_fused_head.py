@@ -7,11 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from patchfusion_tpu.models.zoedepth import \
     ConditionalLogBinomial as JaxConditionalLogBinomial
 from patchfusion_tpu.ops import pallas_head
-from patchfusion_tpu_torch.ops import fused_head
+from patchfusion_tpu_torch.ops import fused_head, resize
 
 from .torch_parity import bf16_params, nchw, nhwc, port_net, rel_err, \
     tiny_jax
@@ -22,6 +24,13 @@ torch.set_num_threads(2)
 # multiple of 8, so the Pallas kernels cannot tile it; reference only)
 SHAPES = {"main": (2, 56, 74, 32, 42), "ragged": (2, 42, 56, 24, 30)}
 K, CIN, CC, HID = 64, 33, 128, 80
+# the fused stage's cases, (shape, bins): beside the above, the BEiT head's
+# 2x upsample (the DA head's is 1.75x, as "main"), K = 128 (the CUDA
+# kernel's largest) and a shape ragged in both axes (reference only)
+CLB_DEPTH_CASES = {
+    "main": (SHAPES["main"], K), "ragged": (SHAPES["ragged"], K),
+    "beit_2x": ((2, 48, 64, 24, 32), K), "k128": (SHAPES["main"], 128),
+    "ragged_xy": ((2, 42, 58, 24, 33), K)}
 
 
 def _interpret(monkeypatch):
@@ -35,12 +44,12 @@ def _interpret(monkeypatch):
     monkeypatch.setattr(pl, "pallas_call", interp_call)
 
 
-def _depth_inputs(shape, seed=0):
+def _depth_inputs(shape, seed=0, k=K):
     b, oh, ow, ih, iw = shape
     rng = np.random.default_rng(seed)
     p = rng.random((b, oh, ow), dtype=np.float32) * 0.98 + 0.01
     t = rng.random((b, oh, ow), dtype=np.float32)
-    centers = rng.random((b, ih, iw, K), dtype=np.float32) * 70 + 1
+    centers = rng.random((b, ih, iw, k), dtype=np.float32) * 70 + 1
     return p, t, centers
 
 
@@ -95,29 +104,123 @@ def test_clb_pt_plain_matches_pallas_kernel(monkeypatch):
     np.testing.assert_allclose(t.numpy(), kt, rtol=2e-4, atol=2e-4)
 
 
-def _clb_depth_inputs(shape, seed=0):
+def _clb_depth_inputs(shape, seed=0, k=K):
     """last_cat, cond_lo, centers, w1, b1, w2, b2 (clb_depth_reference's
     argument order)."""
     last, cond, w1, b1, w2, b2 = _clb_inputs(shape, seed)
-    centers = _depth_inputs(shape, seed)[2]
+    centers = _depth_inputs(shape, seed, k)[2]
     return last, cond, centers, w1, b1, w2, b2
 
 
-@pytest.mark.parametrize("shape", ["main", "ragged"])
+@pytest.mark.parametrize("shape", ["main", "ragged", "beit_2x", "k128",
+                                   "ragged_xy"])
 def test_clb_depth_plain_matches_reference(shape):
-    args = _clb_depth_inputs(SHAPES[shape])
+    size, k = CLB_DEPTH_CASES[shape]
+    args = _clb_depth_inputs(size, k=k)
     golden = np.asarray(pallas_head.clb_depth_reference(*args))
     out = fused_head.clb_logbinomial_depth_plain(*_t(*args)).numpy()
     np.testing.assert_allclose(out, golden, rtol=2e-4, atol=2e-4)
 
 
-def test_clb_depth_plain_matches_pallas_kernel(monkeypatch):
-    args = _clb_depth_inputs(SHAPES["main"])
+def _clb_depth_vs_pallas_kernel(monkeypatch, case):
+    shape, k = CLB_DEPTH_CASES[case]
+    args = _clb_depth_inputs(shape, k=k)
     _interpret(monkeypatch)
     kernel = np.asarray(pallas_head.clb_logbinomial_depth(*args,
                                                           block_rows=8))
     out = fused_head.clb_logbinomial_depth_plain(*_t(*args)).numpy()
     np.testing.assert_allclose(out, kernel, rtol=2e-4, atol=2e-4)
+
+
+def test_clb_depth_plain_matches_pallas_kernel(monkeypatch):
+    _clb_depth_vs_pallas_kernel(monkeypatch, "main")
+
+
+@pytest.mark.parametrize("case", ["beit_2x", "k128"])
+def test_clb_depth_plain_matches_pallas_kernel_at(case, monkeypatch):
+    """The JAX kernel (interpret mode) at the BEiT head's 2x upsample and
+    with K = 128; its tiles take no ragged OH."""
+    _clb_depth_vs_pallas_kernel(monkeypatch, case)
+
+
+def _taps(out_size, in_size):
+    """(i0, i1) per output index of an align_corners upsample, from the
+    port's resize (ops/resize._source_coords), as the kernels read them."""
+    src = np.clip(resize._source_coords(out_size, in_size, True), 0,
+                  in_size - 1)
+    i0 = np.floor(src).astype(np.int64)
+    return i0, np.minimum(i0 + 1, in_size - 1)
+
+
+def _first_fused_kernel_smem(oh, ow, ih, iw, k):
+    """Shared memory the first bf16 clb_logbinomial_depth kernel asked for
+    (8 x 32 tiles, every tile's footprint padded as one block, its centers
+    staged in the condition's buffer): the shapes it took are those within
+    the H100's 227 KB."""
+    def footprint(tile, out, inn):
+        if out <= 1:
+            return 2
+        return min(int((inn - 1) / (out - 1) * (tile - 1)) + 3, inn)
+    fpad = -(-footprint(8, oh, ih) * ((footprint(32, ow, iw) + 14) & ~7)
+             // 16) * 16
+    return (2 * 80 * 184 * 2 + 8 * 88 * 2 + 84 * 4 + 48 * 264 * 2
+            + 128 * (fpad + 8) * 2 + fpad * 88 * 4 + 4 * k)
+
+
+@settings(max_examples=80, deadline=None, derandomize=True)
+@given(ih=st.integers(4, 240), iw=st.integers(4, 300),
+       ry=st.floats(1.2, 2.5), rx=st.floats(1.2, 2.5),
+       cin=st.integers(1, 48), k=st.integers(1, 128),
+       tma=st.sampled_from([0, fused_head.TMA_COND | fused_head.TMA_CENT
+                            | fused_head.TMA_LAST]))
+def test_clb_depth_plan_covers_every_tile(ih, iw, ry, rx, cin, k, tma):
+    """The bf16 kernel's plan, reckoned in Python, at upsample ratios
+    1.2-2.5 and ragged edges: it takes every shape the first bf16 fused
+    kernel took; it fits 227 KB; and every tile's staged window, as the
+    kernel places it (footprint from the tile's first taps, a TMA box from
+    the 8-pixel boundary up to 7 columns before it), holds each
+    align_corners tap of the tile's pixels (brute force over the port's
+    resize taps), with the projection's 8-pixel chunks inside the staged
+    row."""
+    oh, ow = max(ih, round(ih * ry)), max(iw, round(iw * rx))
+    try:
+        plan = fused_head.clb_depth_plan(oh, ow, ih, iw, cin, k, tma)
+    except ValueError:
+        assert _first_fused_kernel_smem(oh, ow, ih, iw, k) > \
+            fused_head.SMEM_LIMIT
+        return
+    assert plan.smem == fused_head.clb_depth_smem(
+        plan.th, plan.fy, plan.fx, plan.ws, plan.kc, cin, k)
+    assert plan.smem <= fused_head.SMEM_LIMIT and plan.th in (8, 4)
+    assert plan.ws % 8 == 0 and plan.ws >= plan.fx + 7
+    assert plan.kc % 2 == 0 and 2 <= plan.kc <= k + 1
+    y0s, y1s = _taps(oh, ih)
+    x0s, x1s = _taps(ow, iw)
+    for y in range(0, oh, plan.th):
+        rows = slice(y, min(y + plan.th, oh))
+        lo = y0s[y]
+        assert lo <= y0s[rows].min() and y1s[rows].max() < lo + plan.fy
+    for x in range(0, ow, fused_head.CLB_DEPTH_TW):
+        cols = slice(x, min(x + fused_head.CLB_DEPTH_TW, ow))
+        lo = x0s[x]
+        fx = x1s[cols].max() - lo + 1
+        assert lo <= x0s[cols].min() and fx <= plan.fx
+        for shift in range(8):  # a staged row starts `shift` before lo
+            chunks = -(-(shift + fx) // 8)
+            assert 8 * chunks <= plan.ws
+
+
+def test_clb_depth_plan_at_the_head_shapes():
+    """Both heads' shapes take 8-row tiles and whole 64-bin chunks; an
+    input as large as the output (no upsample) with 48 input channels and
+    128 bins fits no tile."""
+    tma = fused_head.TMA_COND | fused_head.TMA_CENT | fused_head.TMA_LAST
+    for shape in ((392, 518, 224, 296), (384, 512, 192, 256)):
+        plan = fused_head.clb_depth_plan(*shape, CIN, K, tma)
+        assert (plan.th, plan.fy, plan.kc) == (8, 6, K)
+        assert plan.smem <= fused_head.SMEM_LIMIT
+    with pytest.raises(ValueError, match="too shallow"):
+        fused_head.clb_depth_plan(64, 64, 64, 64, 48, 128, tma)
 
 
 def test_depth_fused_matches_jax(monkeypatch):

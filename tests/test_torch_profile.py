@@ -23,11 +23,12 @@ from patchfusion_tpu.ops import stitch as jstitch
 from patchfusion_tpu_torch.models.dinov2 import build_dinovit
 from patchfusion_tpu_torch.models.patchfusion import TileConfig
 from patchfusion_tpu_torch.ops import fused_head
-from patchfusion_tpu_torch.tools import (_bench_util, profile_attn,
-                                         profile_clb, profile_compile,
-                                         profile_fine, profile_infer,
-                                         profile_stages, profile_stitch,
-                                         profile_train, profile_trunk)
+from patchfusion_tpu_torch.tools import (_bench_util, clb_depth_split,
+                                         profile_attn, profile_clb,
+                                         profile_compile, profile_fine,
+                                         profile_infer, profile_stages,
+                                         profile_stitch, profile_train,
+                                         profile_trunk)
 
 from .torch_parity import nchw, nhwc, port_net, rel_err, tiny_jax
 
@@ -37,7 +38,7 @@ CPU = "cpu"
 TINY_SHAPE = (42, 56)
 PROFILERS = (profile_attn, profile_clb, profile_compile, profile_fine,
              profile_infer, profile_stages, profile_stitch, profile_train,
-             profile_trunk)
+             profile_trunk, clb_depth_split)
 
 
 def _names(out):
@@ -178,6 +179,15 @@ def test_profilers_need_the_card_unless_told_otherwise():
     for mod in PROFILERS:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             mod.main([])
+
+
+def test_clb_depth_split_runs_on_the_card_only():
+    """The phase split is a timing build's clock64 stamps: there is no
+    CPU form of it, so asked for the CPU it refuses before any work."""
+    with pytest.raises(SystemExit, match="CUDA card only"):
+        clb_depth_split.profile(batch=1, device=CPU)
+    with pytest.raises(SystemExit, match="CUDA card only"):
+        clb_depth_split.main(["--beit", "--device", CPU])
 
 
 def test_no_profiler_carries_a_tpu_figure():
