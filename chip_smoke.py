@@ -21,7 +21,8 @@
    against the kernel's C side, at K = 128 too, and its timing build's
    phase split at the DA and BEiT head shapes); the
    attention kernel at the vitl fine and coarse shapes (B = 4 and 1,
-   N = 1037, H = 16, Dh = 64) and at the vitmicro width (Dh = 32) on
+   N = 1037, H = 16, Dh = 64), at the vits and vitb fine shapes (B = 4,
+   H = 6 and 12) and at the vitmicro width (Dh = 32) on
    strided qkv views, in all three roundings, each closer to its own
    rounding's twin than to the other two on inputs where the roundings
    part. Each function is timed four ways (_bench_util.timings): ms, one
@@ -163,12 +164,32 @@
    sharding the scenes, its gathered metrics within 1e-4 of one
    process's; walls, step times on CUDA events and peaks per rank. Two
    ranks on one card show the collectives, not a speed-up.
-14. Prints one JSON line with the kernels' launches (the main path's,
+14. DA-vits and DA-vitb at full width (phase `cores`; their published
+   configs, bf16, seeded weights, process_num 4): one m1 request with the
+   einsum attention and one with PF_ATTN_IMPL=pallas (the attention
+   kernel at 6 and 12 heads), within PATH_TOL of each other, and within
+   CORE_F32_TOL of max of the same seeded model's m1 in float32 on the
+   card; one m2; 9 / 27 launches of each head kernel per m1 / m2 request
+   and 12 + 4 x 12 attention launches per pallas m1.
+15. The port's benchmark (phase `bench`): `python -m
+   patchfusion_tpu_torch.bench` in a fresh process per run, as a user runs
+   it (BENCH_* in its environment): DA-vitl m2 bf16 at bench.py's
+   defaults with the einsum attention and with PF_ATTN_IMPL=pallas, then
+   at BENCH_ITERS=3 vitl m1 and r16, vits m1 and m2 (one whole pass),
+   vitb m2, beit m2 (bf16) and vits m2 in f32; then BENCH_MESH=patch (the
+   tile split over 8 gloo ranks on the CPU against one process, within
+   2e-4). Each run must exit 0 with bench.py's JSON line and a finite,
+   positive value, and launch each kernel as often per request as its
+   chunks give; its line, its stderr diagnostics and its peak memory are
+   printed on lines of their own, with the phase's wall time.
+16. Prints one JSON line with the kernels' launches (the main path's,
    phase profile's, and for the head kernels the eval phase's, the
    training steps', phase surface's, the 2-rank tile split's per rank and
-   the BEiT path's with their BEiT-shape rows), errors, times (the head
-   kernels' recompute backward too) and bounds, then {"ok": true,
-   "device": {...}} as the last line.
+   the BEiT path's with their BEiT-shape rows; per request on phase
+   cores's vits and vitb and in each bench run), errors, times (the head
+   kernels' recompute backward too; the attention kernel's at 6, 12 and
+   16 heads) and bounds, then {"ok": true, "device": {...}} as the last
+   line.
 
 Any failed check raises, so the script exits non-zero without the last line.
 It needs one CUDA card and nothing but this repository.
@@ -198,7 +219,6 @@ VITL_CONFIG = ("configs/patchfusion_depthanything/"
                "depthanything_vitl_patchfusion_u4k.py")
 BASELINE_CONFIG = ("configs/patchfusion_depthanything/"
                    "depthanything_vitl_{}_pretrain_u4k.py")
-ZOE_CONFIG = "configs/patchfusion_zoedepth/zoedepth_patchfusion_u4k.py"
 ZOE_BASELINE_CONFIG = ("configs/patchfusion_zoedepth/"
                        "zoedepth_{}_pretrain_u4k.py")
 RAW_SHAPE = (2160, 3840)
@@ -268,29 +288,7 @@ bound, head_bounds, attention_bound, attn_impl, counts = (
     bench.launch_counts)
 
 
-def tiny_config():
-    """The structurally complete toy PatchFusion config of
-    __graft_entry__._tiny_config (vitmicro, 42x56 tiles of an 84x112
-    image); the tests check that the two agree."""
-    sizes = [(2, 2), (3, 4), (6, 8), (12, 16), (24, 32), (42, 56)]
-    c = 32
-    zoe = dict(
-        type="DA-ZoeDepth", midas_model_type="vitmicro", img_size=[42, 56],
-        n_bins=64, bin_centers_type="softplus", bin_embedding_dim=128,
-        n_attractors=[16, 8, 4, 1], attractor_alpha=1000, attractor_gamma=2,
-        attractor_kind="mean", attractor_type="inv", min_temp=0.0212,
-        max_temp=50.0)
-    return dict(
-        image_raw_shape=(84, 112), patch_split_num=(2, 2),
-        patch_process_shape=(42, 56), min_depth=1e-3, max_depth=80,
-        coarse_branch=dict(zoe), fine_branch=dict(zoe),
-        guided_fusion=dict(
-            type="GuidedFusionPatchFusion", patch_process_shape=(42, 56),
-            in_channels=[32, c, c, c, c, c], depth=[1, 1, 1, 1, 1, 1],
-            num_heads=[2, 2, 2, 2, 2, 2],
-            num_patches=[h * w for (h, w) in sizes[::-1]], n_channels=5,
-            g2l=True),
-        sigloss=dict(type="SILogLoss"))
+tiny_config = bench.tiny_config
 
 
 def tiny_zoe_config():
@@ -300,7 +298,7 @@ def tiny_zoe_config():
     config loader; the tests check that the two agree."""
     from patchfusion_tpu_torch.config import Config
 
-    mc = Config.fromfile(str(ROOT / ZOE_CONFIG)).model.config.to_dict()
+    mc = Config.fromfile(str(bench.ZOE_CONFIG)).model.config.to_dict()
     for b in ("coarse_branch", "fine_branch"):
         mc[b] = dict(mc[b], midas_model_type="BEiT_tiny", img_size=[64, 96])
     mc.update(image_raw_shape=(128, 192), patch_split_num=(2, 2),
@@ -651,9 +649,11 @@ def _fused_split(results):
                  for r in out["rows"]}))
 
 
-# (B, N, H, Dh): the vitl fine and coarse passes, and the vitmicro width
+# (B, N, H, Dh): the vitl fine and coarse passes, the vits and vitb fine
+# passes (6 and 12 heads of 64), and the vitmicro width
 # the tiny config runs (42x56 tiles: 12 patches and the class token)
-ATTN_SHAPES = [(4, 1037, 16, 64), (1, 1037, 16, 64), (2, 13, 2, 32)]
+ATTN_SHAPES = [(4, 1037, 16, 64), (1, 1037, 16, 64), (4, 1037, 6, 64),
+               (4, 1037, 12, 64), (2, 13, 2, 32)]
 
 
 def _attention_wrappers():
@@ -709,7 +709,8 @@ def _rounding_apart(b, n, h, dh):
                 for other, twin in twins.items()}
         nearest = min(d for other, d in dist.items() if other != label)
         check(dist[label] <= 0.25 * nearest,
-              f"{label} B={b} N={n} Dh={dh}: mean |o - twin| {dist[label]:.3g}"
+              f"{label} B={b} N={n} H={h} Dh={dh}: mean |o - twin| "
+              f"{dist[label]:.3g}"
               f" to its rounding, {nearest:.3g} to the nearest other")
         out[label] = (dist[label], nearest)
     torch.cuda.synchronize()
@@ -741,7 +742,8 @@ def _attention_kernel(results):
                   f"{label}: {got.shape} {got.dtype}")
             check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
             err = (got.float() - ref.float()).abs().max().item()
-            check(err <= ATTN_TOL, f"{label} B={b} N={n} Dh={dh}: abs err "
+            check(err <= ATTN_TOL, f"{label} B={b} N={n} H={h} Dh={dh}: "
+                  f"abs err "
                   f"{err:.3g} > {ATTN_TOL}")
             row = {"max_abs_err": err,
                    "max_abs_out": ref.float().abs().max().item(),
@@ -754,7 +756,7 @@ def _attention_kernel(results):
             row["bound_ms"], row["bound_by"] = attention_bound(b, n, h, dh)
             row["bound_share"] = row["bound_ms"] / row["ms"]
             row["bound_share_device"] = row["bound_ms"] / row["device_ms"]
-            results[("vit_attention", label, b, dh)] = row
+            results[("vit_attention", label, b, h, dh)] = row
             say(f"kernel {label} B={b} N={n} H={h} Dh={dh}: "
                 + json.dumps(row))
 
@@ -2377,17 +2379,6 @@ def _beit_block():
     return {"rel_err": rel, "ms_bf16": ms16, "ms_f32": ms32}
 
 
-def _zoe_config():
-    """zoedepth_patchfusion_u4k.py's model config without branch
-    checkpoints, as zoedepth_general.py sets it (load_branch=False,
-    pretrain_model=None)."""
-    from patchfusion_tpu_torch.config import Config
-
-    cfg = Config.fromfile(str(ROOT / ZOE_CONFIG)).model.config.to_dict()
-    cfg.update(load_branch=False, pretrain_model=None)
-    return cfg
-
-
 def build_zoe():
     """BEiT ZoeDepth PatchFusion at full width in bf16, seeded weights."""
     import torch
@@ -2395,8 +2386,8 @@ def build_zoe():
     from patchfusion_tpu_torch.models.zoedepth import ZoeDepthBEiT
 
     t0 = time.perf_counter()
-    model = PatchFusion.from_config(_zoe_config(), dtype=torch.bfloat16,
-                                    seed=0)
+    model = PatchFusion.from_config(bench.published_config("beit"),
+                                    dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
     say(f"beit: zoedepth build + seeded init: "
         f"{time.perf_counter() - t0:.1f} s, "
@@ -2546,7 +2537,8 @@ def _beit_train():
     from patchfusion_tpu_torch.api import PatchFusion
     from patchfusion_tpu_torch.engine import training
 
-    net = PatchFusion.from_config(_zoe_config(), device="cuda", seed=0).net
+    net = PatchFusion.from_config(bench.published_config("beit"),
+                                  device="cuda", seed=0).net
     state = training.create_train_state(
         net, training.make_onecycle_optimizer(1e-4, 10),
         frozen_dtype=torch.bfloat16, amp=True)
@@ -3019,6 +3011,185 @@ def phase_dist() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase cores: DA-vits and DA-vitb at full width
+# ---------------------------------------------------------------------------
+
+# bf16 against f32 on the card, the same seeded model, relative to max depth
+CORE_F32_TOL = 3e-2
+# core -> (ViT width, heads)
+CORE_WIDTHS = {"vits": (384, 6), "vitb": (768, 12)}
+
+
+def phase_cores() -> dict:
+    """DA-vits and DA-vitb from their published configs at full width,
+    seeded, process_num 4: in bf16 one m1 with the einsum attention, one
+    with PF_ATTN_IMPL=pallas and one m2; the same seeded weights in f32
+    for one m1 (no kernel launches: the fused head is bf16's)."""
+    import torch
+    from patchfusion_tpu_torch.api import PatchFusion
+
+    t0 = time.perf_counter()
+    out = {}
+    for core, (width, heads) in CORE_WIDTHS.items():
+        cfg = bench.published_config(core)
+        model = PatchFusion.from_config(cfg, dtype=torch.bfloat16, seed=0)
+        branches = (model.net.coarse_branch, model.net.fine_branch)
+        vits = [b.core.core.pretrained for b in branches]
+        check(all(v.cls_token.shape[-1] == width and
+                  {blk.attn.num_heads for blk in v.blocks} == {heads}
+                  for v in vits), f"{core}: not {width} wide, {heads} heads")
+        blocks = [len(v.blocks) for v in vits]
+        n_tiles = _tiles(model.tile_cfg)
+        torch.cuda.reset_peak_memory_stats()
+        with attn_impl("einsum"):
+            ms_e, einsum = _request(model, "m1", 0, _want(n_tiles["m1"]))
+            ms_m2, _ = _request(model, "m2", 3, _want(n_tiles["m2"]))
+        with attn_impl("pallas"):
+            want = _want(n_tiles["m1"], blocks)
+            ms_p, pallas = _request(model, "m1", 0, want)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del model
+        torch.cuda.empty_cache()
+        f32 = PatchFusion.from_config(cfg, dtype=torch.float32, seed=0)
+        ms_f, exact = _request(f32, "m1", 0, {name: 0 for name in want})
+        del f32
+        torch.cuda.empty_cache()
+        scale = float(np.abs(exact).max())
+        path = float(np.abs(pallas - einsum).max()) / float(
+            np.abs(einsum).max())
+        bf16 = float(np.abs(einsum - exact).max()) / scale
+        say(f"{core}: pallas vs einsum m1 {path:.3g} (tolerance "
+            f"{PATH_TOL}); bf16 vs f32 m1 {bf16:.3g} (tolerance "
+            f"{CORE_F32_TOL}); m1 einsum {ms_e:.1f} ms, pallas {ms_p:.1f} "
+            f"ms, f32 {ms_f:.1f} ms; m2 {ms_m2:.1f} ms; bf16 peak "
+            f"{peak:.2f} GiB")
+        check(path <= PATH_TOL, f"{core}: pallas path differs by {path:.3g}")
+        check(bf16 <= CORE_F32_TOL, f"{core}: bf16 vs f32 {bf16:.3g}")
+        out[core] = {"pallas_vs_einsum": path, "bf16_vs_f32": bf16,
+                     "m1_einsum_ms": ms_e, "m1_pallas_ms": ms_p,
+                     "m1_f32_ms": ms_f, "m2_ms": ms_m2, "peak_gib": peak,
+                     "launches": {
+                         "m1": _want(n_tiles["m1"]),
+                         "m2": _want(n_tiles["m2"]), "m1_pallas": want}}
+    out["seconds"] = time.perf_counter() - t0
+    say(f"phase cores: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase bench: python -m patchfusion_tpu_torch.bench, as a user runs it
+# ---------------------------------------------------------------------------
+
+# label -> (BENCH_* environment, PF_ATTN_IMPL or None for the default)
+BENCH_RUNS = {
+    "vitl m2 bf16": ({}, None),
+    "vitl m2 bf16 pallas": ({}, "pallas"),
+    "vitl m1 bf16": ({"BENCH_MODE": "m1", "BENCH_ITERS": "3"}, None),
+    "vitl r16 bf16": ({"BENCH_MODE": "r16", "BENCH_ITERS": "3"}, None),
+    "vits m1 bf16": ({"BENCH_CORE": "vits", "BENCH_MODE": "m1",
+                      "BENCH_ITERS": "3"}, None),
+    "vits m2 bf16": ({"BENCH_CORE": "vits", "BENCH_ITERS": "3"}, None),
+    "vitb m2 bf16": ({"BENCH_CORE": "vitb", "BENCH_ITERS": "3"}, None),
+    "beit m2 bf16": ({"BENCH_CORE": "beit", "BENCH_ITERS": "3"}, None),
+    "vits m2 f32": ({"BENCH_CORE": "vits", "BENCH_DTYPE": "f32",
+                     "BENCH_ITERS": "3"}, None),
+}
+BENCH_TIMEOUT = 300
+# the DINOv2 blocks of each branch (the attention kernel's launches)
+VIT_BLOCKS = {"vitl": 24, "vitb": 12, "vits": 12, "beit": 0}
+
+
+def _bench_want(args: dict, pallas: bool) -> dict:
+    """Launches per request of a bench run (args: bench.bench_env): each
+    head kernel once for the coarse head and twice per chunk (fine and PF
+    heads), where a chunk is `process_num` regular tiles (all of them in
+    one pass for None) or one group of rN's random tiles; the attention
+    kernel once per block of the coarse pass and of each chunk's fine
+    pass with PF_ATTN_IMPL=pallas; nothing in float32."""
+    mode, pn = args["mode"], args["process_num"]
+    regular = 16 if mode == "m1" else 49
+    chunks = math.ceil(regular / (pn or regular))
+    if mode.startswith("r"):
+        group = pn or 1
+        chunks += int(mode[1:]) // group
+    bf16 = args["dtype"] == "bf16"
+    heads = (1 + 2 * chunks) if bf16 else 0
+    blocks = VIT_BLOCKS[args["core"]] if bf16 and pallas else 0
+    return {"clb_pt": heads, "logbinomial_depth": heads,
+            "logbinomial_depth_pixel": 0, "clb_logbinomial_depth": 0,
+            "vit_attention": blocks * (1 + chunks)}
+
+
+def _bench_process(env: dict, timeout: int):
+    """`python -m patchfusion_tpu_torch.bench` in a fresh process with
+    `env` over this one's environment; -> (last stdout line as JSON,
+    stderr lines, seconds). BENCH_* and PF_ATTN_IMPL come from `env`
+    alone."""
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith("BENCH_") and k != "PF_ATTN_IMPL"}
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "patchfusion_tpu_torch.bench"],
+        env={**base, **env}, cwd=str(ROOT), capture_output=True,
+        text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    check(res.returncode == 0, f"bench {env} exited {res.returncode}:\n"
+          + res.stderr[-4000:])
+    lines = res.stdout.strip().splitlines()
+    check(bool(lines), f"bench {env}: no output")
+    return json.loads(lines[-1]), res.stderr.strip().splitlines(), secs
+
+
+def phase_bench() -> dict:
+    """Step 15: the port's bench.py, one fresh process per run, then
+    BENCH_MESH=patch."""
+    import torch
+    from patchfusion_tpu_torch import bench as port_bench
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    for label, (env, impl) in BENCH_RUNS.items():
+        args = port_bench.bench_env(env)
+        run_env = dict(env, **({"PF_ATTN_IMPL": impl} if impl else {}))
+        line, err, secs = _bench_process(run_env, BENCH_TIMEOUT)
+        for text in err:
+            say(f"bench {label} stderr: {text}")
+        say(f"bench {label}: " + json.dumps(line))
+        check(set(line) == {"metric", "value", "unit", "vs_baseline",
+                            "latency_ms", "compile_first_s",
+                            "cache_new_entries"}, f"bench {label}: {line}")
+        check(math.isfinite(line["value"]) and line["value"] > 0,
+              f"bench {label}: value {line['value']}")
+        got = {}
+        peak = None
+        for text in err:
+            if text.startswith("launches per request: "):
+                got = json.loads(text.split(": ", 1)[1])
+            elif text.startswith("peak allocated: "):
+                peak = float(text.split(": ", 1)[1].split()[0])
+        want = _bench_want(args, impl == "pallas")
+        check(got == want, f"bench {label}: launches per request {got}, "
+              f"expected {want}")
+        say(f"bench {label} peak: {peak} GiB; {secs:.1f} s in its process")
+        out[label] = {"line": line, "launches": got, "peak_gib": peak,
+                      "process_num": args["process_num"], "seconds": secs}
+    # past the ranks' own deadline, so that the bench process reaps them
+    line, err, secs = _bench_process({"BENCH_MESH": "patch"},
+                                     port_bench.MESH_TIMEOUT + 60)
+    for text in err:
+        say(f"bench mesh stderr: {text}")
+    say("bench mesh: " + json.dumps(line))
+    check(line["value"] < port_bench.MESH_TOL and line["vs_baseline"] == 1.0,
+          f"bench mesh parity: {line}")
+    out["mesh"] = {"line": line, "seconds": secs}
+    out["seconds"] = time.perf_counter() - t0
+    say(f"phase bench: {out['seconds']:.1f} s")
+    say("bench summary: " + json.dumps(out))
+    return out
+
+
 def main(argv) -> int:
     root = ROOT
     child = argv[:1] == ["--dist-child"] and len(argv) == 3
@@ -3044,22 +3215,36 @@ def main(argv) -> int:
         print(json.dumps({"time_only": str(root), "kernels": rows}),
               flush=True)
         return 0
-    phase_build()
-    kres = phase_kernels()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """fn(*args), its wall time kept under `name`."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    timed("build", phase_build)
+    kres = timed("kernels", phase_kernels)
     model = build_vitl()
-    main_launches, einsum_depths, m2_ms = phase_full_width(model)
-    pallas_launches = phase_pallas_path(model, einsum_depths)
-    fused_launches = phase_depth_fused(model)
-    ev = phase_eval(model)
+    main_launches, einsum_depths, m2_ms = timed("full_width",
+                                                phase_full_width, model)
+    pallas_launches = timed("pallas_path", phase_pallas_path, model,
+                            einsum_depths)
+    fused_launches = timed("depth_fused", phase_depth_fused, model)
+    ev = timed("eval", phase_eval, model)
     del model
     torch.cuda.empty_cache()
-    phase_tiny()
-    tr = phase_train()
-    surface = phase_surface()
-    prof = phase_profile(m2_ms, tr["fusion"])
-    beit_launches, _ = phase_beit()
+    timed("tiny", phase_tiny)
+    tr = timed("train", phase_train)
+    surface = timed("surface", phase_surface)
+    prof = timed("profile", phase_profile, m2_ms, tr["fusion"])
+    beit_launches, _ = timed("beit", phase_beit)
     torch.cuda.empty_cache()
-    dist_out = phase_dist()
+    dist_out = timed("dist", phase_dist)
+    cores = timed("cores", phase_cores)
+    bench_out = timed("bench", phase_bench)
+    say("phase seconds: " + json.dumps(seconds))
     launches = {"clb_pt": main_launches["clb_pt"],
                 "logbinomial_depth": main_launches["logbinomial_depth"],
                 "vit_attention": pallas_launches["vit_attention"],
@@ -3073,7 +3258,7 @@ def main(argv) -> int:
     for name in ("clb_pt", "logbinomial_depth", "vit_attention",
                  "clb_logbinomial_depth"):
         if name == "vit_attention":
-            r = kres[("vit_attention", "vit_attention", 4, 64)]
+            r = kres[("vit_attention", "vit_attention", 4, 16, 64)]
         else:
             r = kres[(name, "bfloat16", 4, "nchw-view")]
         kernels.append({"name": name, "route": "cuda",
@@ -3102,6 +3287,23 @@ def main(argv) -> int:
                         **({"launches_beit": beit_launches[name]}
                            if name in ("clb_pt", "logbinomial_depth")
                            else {}),
+                        "launches_cores": {
+                            core: {req: n[name] for req, n in
+                                   cores[core]["launches"].items()}
+                            for core in CORE_WIDTHS},
+                        "launches_bench": {
+                            label: run["launches"][name]
+                            for label, run in bench_out.items()
+                            if isinstance(run, dict) and "launches" in run},
+                        **({"by_heads": {h: {key: kres[(
+                            "vit_attention", "vit_attention", 4, h, 64)][key]
+                            for key in ("max_abs_err", "ms", "ms_batched",
+                                        "device_ms", "host_us", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "bound_share_device", "library_ms",
+                                        "library_device_ms")}
+                            for h in (6, 12, 16)}}
+                           if name == "vit_attention" else {}),
                         **({"beit": {key: kres[(
                             "beit", name, "bfloat16", 4, "nchw-view")]
                             .get(key) for key in (

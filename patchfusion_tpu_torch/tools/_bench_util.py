@@ -51,6 +51,8 @@ F32_FLOPS = 67e12
 
 CONFIGS = Path(__file__).resolve().parents[2] / "configs" / \
     "patchfusion_depthanything"
+ZOE_CONFIG = CONFIGS.parent / "patchfusion_zoedepth" / \
+    "zoedepth_patchfusion_u4k.py"
 
 # substrings of the port's kernels' names in a profile
 PORT_KERNEL_NAMES = ("vit_attention_kernel", "clb_", "logbinomial_depth")
@@ -435,20 +437,48 @@ def attention_bound(b, n, h, dh):
 
 
 # ---------------------------------------------------------------------------
-# the profilers' full-width configuration
+# the profilers' and the benchmark's configurations
 # ---------------------------------------------------------------------------
 
 def published_config(core: str = "vitl") -> dict:
     """The `model.config` of configs/patchfusion_depthanything/
     depthanything_{core}_patchfusion_u4k.py (core: vits, vitb or vitl),
-    the DA-ZoeDepth PatchFusion the JAX profilers build inline, without
-    branch checkpoints."""
+    the DA-ZoeDepth PatchFusion the JAX profilers build inline, or for
+    core "beit" of configs/patchfusion_zoedepth/zoedepth_patchfusion_u4k.py
+    (MiDaS DPT_BEiT_L_384 branches at 384x512), without branch
+    checkpoints."""
     from patchfusion_tpu_torch.config import Config
 
-    path = CONFIGS / f"depthanything_{core}_patchfusion_u4k.py"
+    path = ZOE_CONFIG if core == "beit" else \
+        CONFIGS / f"depthanything_{core}_patchfusion_u4k.py"
     cfg = Config.fromfile(str(path)).model.config.to_dict()
     cfg.update(load_branch=False, pretrain_model=None)
     return cfg
+
+
+def tiny_config() -> dict:
+    """The structurally complete toy PatchFusion config of
+    __graft_entry__._tiny_config (vitmicro, 42x56 tiles of an 84x112
+    image); the tests check that the two agree."""
+    sizes = [(2, 2), (3, 4), (6, 8), (12, 16), (24, 32), (42, 56)]
+    c = 32
+    zoe = dict(
+        type="DA-ZoeDepth", midas_model_type="vitmicro", img_size=[42, 56],
+        n_bins=64, bin_centers_type="softplus", bin_embedding_dim=128,
+        n_attractors=[16, 8, 4, 1], attractor_alpha=1000, attractor_gamma=2,
+        attractor_kind="mean", attractor_type="inv", min_temp=0.0212,
+        max_temp=50.0)
+    return dict(
+        image_raw_shape=(84, 112), patch_split_num=(2, 2),
+        patch_process_shape=(42, 56), min_depth=1e-3, max_depth=80,
+        coarse_branch=dict(zoe), fine_branch=dict(zoe),
+        guided_fusion=dict(
+            type="GuidedFusionPatchFusion", patch_process_shape=(42, 56),
+            in_channels=[32, c, c, c, c, c], depth=[1, 1, 1, 1, 1, 1],
+            num_heads=[2, 2, 2, 2, 2, 2],
+            num_patches=[h * w for (h, w) in sizes[::-1]], n_channels=5,
+            g2l=True),
+        sigloss=dict(type="SILogLoss"))
 
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}

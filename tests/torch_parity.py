@@ -13,14 +13,30 @@ from patchfusion_tpu.models.builder import build_patchfusion as jax_build
 from patchfusion_tpu_torch.convert.from_jax import (state_dict_from_flax,
                                                     to_torch)
 from patchfusion_tpu_torch.models.builder import build_patchfusion
+from patchfusion_tpu_torch.models.zoedepth import DA_OUTPUT_CHANNELS
 
 
-def tiny_jax(seed: int = 0):
-    """(config, JAX net, tile config, variables as numpy trees) for
-    __graft_entry__._tiny_config. `_init_variables` leaves biases at 0 and
-    norm scales and BN statistics at 1/0, so those are redrawn from the
-    same seed to exercise every weight the conversion carries."""
+def core_config(core: str = "vitmicro"):
+    """__graft_entry__._tiny_config (42x56 tiles of an 84x112 image) with
+    both branches at a DA core's published widths and depth
+    (`_tiny_zoe(core)`: vits, vitb, vitl) and the fusion stage's
+    in_channels [32, C x 5] at that core's DPT output width C."""
     cfg = graft._tiny_config()
+    if core != "vitmicro":
+        c = DA_OUTPUT_CHANNELS[core]
+        cfg["coarse_branch"] = graft._tiny_zoe(core)
+        cfg["fine_branch"] = graft._tiny_zoe(core)
+        cfg["guided_fusion"]["in_channels"] = [32] + [c] * 5
+    return cfg
+
+
+def tiny_jax(seed: int = 0, core: str = "vitmicro"):
+    """(config, JAX net, tile config, variables as numpy trees) for
+    core_config(core) (default __graft_entry__._tiny_config).
+    `_init_variables` leaves biases at 0 and norm scales and BN statistics
+    at 1/0, so those are redrawn from the same seed to exercise every
+    weight the conversion carries."""
+    cfg = core_config(core)
     net, tile_cfg = jax_build(cfg)
     var = jax.device_get(_init_variables(net, tile_cfg, seed))
     rng = np.random.default_rng(seed + 1)
