@@ -40,6 +40,7 @@ from patchfusion_tpu_torch.models.builder import (build_patchfusion,
 from patchfusion_tpu_torch.models.patchfusion import FEATURE_KEYS, TileConfig
 from patchfusion_tpu_torch.ops.resize import NetResizer
 from patchfusion_tpu_torch.parallel.dist import PatchMesh
+from patchfusion_tpu_torch.utils import profiling
 
 _NORMAL_002 = ("pos_embed", "absolute_pos_embed",
                "relative_position_bias_table")
@@ -209,17 +210,18 @@ class PatchFusion:
               mesh: Optional[PatchMesh] = None) -> np.ndarray:
         """image_lr (1, h, w, 3) NHWC in [0, 1]; image_hr (H, W, 3).
         Returns depth (H', W') as a float32 numpy array. mesh: as
-        engine()."""
+        engine(). One request of the span tracer (utils/profiling)."""
         tc = self.tile_cfg
         if image_raw_shape is not None or patch_split_num is not None:
             tc = TileConfig(
                 tuple(image_raw_shape or tc.image_raw_shape),
                 tuple(patch_split_num or tc.patch_split_num),
                 tc.patch_process_shape)
-        depth = self.engine(process_num, tc, mesh).infer(
-            image_lr, image_hr, cai_mode=cai_mode, rng=rng,
-            rand_origins=rand_origins)
-        return depth.cpu().numpy()
+        with profiling.request(self.net.device):
+            depth = self.engine(process_num, tc, mesh).infer(
+                image_lr, image_hr, cai_mode=cai_mode, rng=rng,
+                rand_origins=rand_origins)
+            return _to_host(depth)
 
     def __call__(self, mode: str = "infer", image_lr=None, image_hr=None,
                  cai_mode: str = "m1", process_num: int = 4, tile_cfg=None,
@@ -242,6 +244,13 @@ class PatchFusion:
         depth = depth[None, None]
         rgb = torch.as_tensor(image_lr).to(depth.device)
         return depth, {"rgb": rgb, "depth_pred": depth}
+
+
+def _to_host(depth: torch.Tensor) -> np.ndarray:
+    """The request's blocking copy back, as the span `pf.d2h`."""
+    with profiling.span("d2h"):
+        profiling.count("d2h_bytes", depth.nbytes)
+        return depth.cpu().numpy()
 
 
 def _to_nhwc(x) -> np.ndarray:
@@ -354,16 +363,19 @@ class BaselinePretrain:
               rand_origins: Optional[np.ndarray] = None) -> np.ndarray:
         """image_lr (1, h, w, 3) NHWC in [0, 1]; image_hr (H, W, 3), for the
         fine target. Returns depth as a float32 numpy array: (h, w) for
-        coarse, the engine's output for fine."""
-        if self.target == "coarse":
-            x = torch.as_tensor(np.asarray(image_lr, np.float32))
-            x = x.to(self.net.conv2.weight.device).movedim(-1, -3)
-            depth = self.net(x)["metric_depth"]
-            return depth[0, 0].float().cpu().numpy()
-        depth = self.engine(process_num).infer(
-            image_lr, image_hr, cai_mode=cai_mode, rng=rng,
-            rand_origins=rand_origins)
-        return depth.cpu().numpy()
+        coarse, the engine's output for fine. One request of the span
+        tracer (utils/profiling)."""
+        device = self.net.conv2.weight.device
+        with profiling.request(device):
+            if self.target == "coarse":
+                x = torch.as_tensor(np.asarray(image_lr, np.float32))
+                x = x.to(device).movedim(-1, -3)
+                depth = self.net(x)["metric_depth"]
+                return _to_host(depth[0, 0].float())
+            depth = self.engine(process_num).infer(
+                image_lr, image_hr, cai_mode=cai_mode, rng=rng,
+                rand_origins=rand_origins)
+            return _to_host(depth)
 
 
 def _normalize_hub_config(raw: Dict[str, Any]) -> Dict[str, Any]:

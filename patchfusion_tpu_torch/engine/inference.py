@@ -40,6 +40,7 @@ from patchfusion_tpu_torch.ops.resize import interpolate, interpolate_nchw
 from patchfusion_tpu_torch.ops.stitch import AvgMap, paste_dynamic, paste_grid
 from patchfusion_tpu_torch.parallel.dist import (PatchMesh, all_reduce_,
                                                  broadcast_object)
+from patchfusion_tpu_torch.utils import profiling
 
 
 def crop_resize_tiles(image_hr: torch.Tensor, origins: np.ndarray,
@@ -116,33 +117,47 @@ class PatchFusionInference:
         """Fine + fusion for tiles at `origins` -> depth (N, ph, pw) f32,
         `process_num` tiles at a time with chunk-local ROIs."""
         tc = self.tile_cfg
-        crops = crop_resize_tiles(image_hr, origins, tc.patch_raw_shape,
-                                  tc.patch_process_shape, self.net.dtype)
+        with profiling.span("crop"):
+            crops = crop_resize_tiles(image_hr, origins, tc.patch_raw_shape,
+                                      tc.patch_process_shape, self.net.dtype)
         n = crops.shape[0]
+        profiling.count("tiles", n)
         chunk = self.process_num or n
         outs = []
         if not self.fusion:
             for s in range(0, n, chunk):
-                depth, _ = self.net.fine_forward(crops[s:s + chunk])
-                outs.append(depth[:, 0].float())
+                with profiling.span("chunk"):
+                    profiling.count("chunks")
+                    with profiling.span("fine"):
+                        depth, _ = self.net.fine_forward(crops[s:s + chunk])
+                    outs.append(depth[:, 0].float())
             return torch.cat(outs)
         boxes = self._boxes_process(origins)
         coarse_depth, coarse_feats, g2l_feats = coarse_ctx
         for s in range(0, n, chunk):
-            droi, frois, grois = self.net.coarse_postprocess(
-                coarse_depth, coarse_feats, g2l_feats, boxes[s:s + chunk])
-            depth = self.net.infer_tiles(crops[s:s + chunk], frois, grois,
-                                         droi)
-            outs.append(depth[:, 0].float())
+            with profiling.span("chunk"):
+                profiling.count("chunks")
+                with profiling.span("roi"):
+                    droi, frois, grois = self.net.coarse_postprocess(
+                        coarse_depth, coarse_feats, g2l_feats,
+                        boxes[s:s + chunk])
+                # pf.fine and pf.fusion open inside infer_tiles
+                depth = self.net.infer_tiles(crops[s:s + chunk], frois,
+                                             grois, droi)
+                outs.append(depth[:, 0].float())
         return torch.cat(outs)
 
     def _coarse_ctx(self, image_lr: torch.Tensor):
         if not self.fusion:
             # a fine-only engine never reads the coarse pass
             return None
-        coarse_depth, coarse_feats = self.net.coarse_forward(image_lr)
-        return coarse_depth, coarse_feats, \
-            self.net.attend_coarse(coarse_feats)
+        with profiling.span("coarse"):
+            with profiling.span("coarse_branch"):
+                coarse_depth, coarse_feats = self.net.coarse_forward(
+                    image_lr)
+            with profiling.span("g2l"):
+                g2l_feats = self.net.attend_coarse(coarse_feats)
+        return coarse_depth, coarse_feats, g2l_feats
 
     def _image_stream(self, image_hr: torch.Tensor, rand_origins: np.ndarray,
                       coarse_ctx, mode: str) -> torch.Tensor:
@@ -158,7 +173,11 @@ class PatchFusionInference:
                         ((prh // 2, 0), (pph // 2, 0)),
                         ((prh // 2, prw // 2), (pph // 2, ppw // 2))]
         pass_grids = [tc.regular_origins(off_raw) for (off_raw, _) in offsets]
-        blur = torch.from_numpy(blend_mask(tc.patch_process_shape)).to(dev)
+        # pf.stitch: the blend mask's upload here, the canvases and the
+        # average after the tiles, and rN's raw-resolution pastes
+        with profiling.span("stitch"):
+            blur = torch.from_numpy(blend_mask(tc.patch_process_shape)).to(
+                dev)
 
         # all regular passes' tiles as one stream
         counts = [len(oh) * len(ow) for (oh, ow) in pass_grids]
@@ -168,49 +187,54 @@ class PatchFusionInference:
         tiles_all, owned = self._shared_tiles(image_hr, all_origins,
                                               coarse_ctx)
 
-        canvases = []
-        start = 0
-        for (_, off_proc), n in zip(offsets, counts):
-            poh, pow_ = tc.process_origins(off_proc)
-            tiles = tiles_all[start:start + n]
-            weight = blur if owned is None else \
-                blur * owned[start:start + n, None, None]
-            start += n
-            canvases.append((
-                paste_grid(tiles * blur, poh, pow_,
-                           tc.patch_reensemble_shape),
-                paste_grid(weight.expand(tiles.shape), poh, pow_,
-                           tc.patch_reensemble_shape)))
-        if owned is not None:
-            canvases = self._sum_canvases(canvases)
-        avg = None
-        for num, den in canvases:
-            avg = AvgMap.init(num, den) if avg is None \
-                else avg.update(num, den)
+        with profiling.span("stitch"):
+            canvases = []
+            start = 0
+            for (_, off_proc), n in zip(offsets, counts):
+                poh, pow_ = tc.process_origins(off_proc)
+                tiles = tiles_all[start:start + n]
+                weight = blur if owned is None else \
+                    blur * owned[start:start + n, None, None]
+                start += n
+                canvases.append((
+                    paste_grid(tiles * blur, poh, pow_,
+                               tc.patch_reensemble_shape),
+                    paste_grid(weight.expand(tiles.shape), poh, pow_,
+                               tc.patch_reensemble_shape)))
+            if owned is not None:
+                canvases = self._sum_canvases(canvases)
+            avg = None
+            for num, den in canvases:
+                avg = AvgMap.init(num, den) if avg is None \
+                    else avg.update(num, den)
 
         if mode == "r" and len(rand_origins):
-            avg = avg.resize(tc.image_raw_shape)
-            blur_raw = torch.from_numpy(
-                blend_mask(tc.patch_raw_shape)).to(dev)
+            with profiling.span("stitch"):
+                avg = avg.resize(tc.image_raw_shape)
+                blur_raw = torch.from_numpy(
+                    blend_mask(tc.patch_raw_shape)).to(dev)
+                num = torch.zeros(tc.image_raw_shape, device=dev)
+                den = torch.zeros(tc.image_raw_shape, device=dev)
             if self.mesh is not None:
                 first, mine, _ = self._share(len(rand_origins))
                 rand_origins = rand_origins[first:first + mine]
             group = self.process_num or 1
-            num = torch.zeros(tc.image_raw_shape, device=dev)
-            den = torch.zeros(tc.image_raw_shape, device=dev)
             for s in range(0, len(rand_origins), group):
                 g = rand_origins[s:s + group]
                 tiles = self._tile_batch(image_hr, g, coarse_ctx)
-                # the reference resizes tile depth to the raw tile size with
-                # F.interpolate's default mode, nearest (bp:203)
-                tiles = interpolate(tiles[..., None], tc.patch_raw_shape,
-                                    mode="nearest")[..., 0]
-                num += paste_dynamic(tiles * blur_raw, g, tc.image_raw_shape)
-                den += paste_dynamic(blur_raw.expand(tiles.shape), g,
-                                     tc.image_raw_shape)
-            if self.mesh is not None:
-                (num, den), = self._sum_canvases([(num, den)])
-            avg = avg.update(num, den)
+                with profiling.span("stitch"):
+                    # the reference resizes tile depth to the raw tile size
+                    # with F.interpolate's default mode, nearest (bp:203)
+                    tiles = interpolate(tiles[..., None], tc.patch_raw_shape,
+                                        mode="nearest")[..., 0]
+                    num += paste_dynamic(tiles * blur_raw, g,
+                                         tc.image_raw_shape)
+                    den += paste_dynamic(blur_raw.expand(tiles.shape), g,
+                                         tc.image_raw_shape)
+            with profiling.span("stitch"):
+                if self.mesh is not None:
+                    (num, den), = self._sum_canvases([(num, den)])
+                avg = avg.update(num, den)
         return avg.average
 
     def _random_tiles(self, cai_mode: str, rng, rand_origins, n_images: int):
@@ -272,7 +296,10 @@ class PatchFusionInference:
     def _to_device(self, image: np.ndarray) -> torch.Tensor:
         """NHWC numpy (or tensor) -> NCHW float32 tensor on the device."""
         t = torch.as_tensor(np.asarray(image, np.float32))
-        return t.to(self.device).movedim(-1, -3)
+        with profiling.span("h2d"):
+            profiling.count("h2d_bytes", t.nbytes)
+            t = t.to(self.device)
+        return t.movedim(-1, -3)
 
     # -- public API ----------------------------------------------------------
 

@@ -20,6 +20,7 @@ from patchfusion_tpu_torch.ops.activations import gelu
 from patchfusion_tpu_torch.ops.resize import interpolate
 from patchfusion_tpu_torch.ops.vit_attention import (vit_attention,
                                                      vit_attention_plain)
+from patchfusion_tpu_torch.utils import profiling
 
 VIT_CONFIGS = {
     "vits": dict(embed_dim=384, depth=12, num_heads=6),
@@ -66,7 +67,9 @@ class Attention(nn.Module):
         b, n, d = x.shape
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads,
                                   d // self.num_heads)
-        o = fused_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        # host time per call (the span tracer's pf.attn; utils/profiling)
+        with profiling.span("attn", device=False):
+            o = fused_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
         return self.proj(o.reshape(b, n, d))
 
 

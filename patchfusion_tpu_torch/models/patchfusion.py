@@ -27,6 +27,7 @@ from patchfusion_tpu_torch.models.zoedepth import (N_MIDAS_OUT,
                                                    make_zoe_branch)
 from patchfusion_tpu_torch.ops.roi_align import (roi_align_batched,
                                                  roi_align_single)
+from patchfusion_tpu_torch.utils import profiling
 
 # the frozen ZoeDepth branches of the fusion stage (reference
 # patchfusion.py:112-115); everything else of the net is trained
@@ -214,9 +215,12 @@ class PatchFusionNet(MetricBinsHead):
                     g2l_rois: List[torch.Tensor],
                     coarse_depth_roi: torch.Tensor) -> torch.Tensor:
         """Fine pass + fusion for a batch of tiles (patchfusion.py:343-356)."""
-        fine_depth, fine_feats = self.fine_forward(crops)
-        return self.fusion_forward(fine_depth, crops, coarse_feat_rois,
-                                   fine_feats, g2l_rois, coarse_depth_roi)
+        with profiling.span("fine"):
+            fine_depth, fine_feats = self.fine_forward(crops)
+        with profiling.span("fusion"):
+            return self.fusion_forward(fine_depth, crops, coarse_feat_rois,
+                                       fine_feats, g2l_rois,
+                                       coarse_depth_roi)
 
     # -- training ------------------------------------------------------------
 

@@ -24,6 +24,7 @@ from patchfusion_tpu_torch.models.dpt import DPT_CONFIGS, DPTDinov2
 from patchfusion_tpu_torch.ops import fused_head
 from patchfusion_tpu_torch.ops.activations import Gelu, gelu
 from patchfusion_tpu_torch.ops.resize import interpolate_nchw
+from patchfusion_tpu_torch.utils import profiling
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -238,9 +239,10 @@ class ConditionalLogBinomial(nn.Module):
         condition at its low resolution, upsamples the projection itself
         and never writes the full-resolution bottleneck.
         The NCHW tensors go in as permuted channels-last views (no copy)."""
-        return fused_head.clb_pt(
-            x_hi.permute(0, 2, 3, 1), cond_lo.permute(0, 2, 3, 1),
-            *self.mlp_weights(), self.p_eps)
+        with profiling.span("head.clb_pt", device=False):
+            return fused_head.clb_pt(
+                x_hi.permute(0, 2, 3, 1), cond_lo.permute(0, 2, 3, 1),
+                *self.mlp_weights(), self.p_eps)
 
     def depth_fused(self, x_hi, cond_lo, centers) -> torch.Tensor:
         """The whole stage, params_pt_fused and the log-binomial depth, in
@@ -253,10 +255,11 @@ class ConditionalLogBinomial(nn.Module):
         if x_hi.dtype != torch.bfloat16:
             raise TypeError(f"depth_fused is bf16-only (tanh-GELU contract); "
                             f"got {x_hi.dtype}")
-        return fused_head.clb_logbinomial_depth(
-            x_hi.permute(0, 2, 3, 1), cond_lo.permute(0, 2, 3, 1),
-            centers.permute(0, 2, 3, 1), *self.mlp_weights(),
-            self.min_temp, self.max_temp, self.p_eps)[:, None]
+        with profiling.span("head.clb_logbinomial_depth", device=False):
+            return fused_head.clb_logbinomial_depth(
+                x_hi.permute(0, 2, 3, 1), cond_lo.permute(0, 2, 3, 1),
+                centers.permute(0, 2, 3, 1), *self.mlp_weights(),
+                self.min_temp, self.max_temp, self.p_eps)[:, None]
 
     def mlp_weights(self) -> Tuple[torch.Tensor, ...]:
         """mlp_0 and mlp_2 as the kernels take them: w1 (Cin + Cc, H), b1,
@@ -366,12 +369,15 @@ class MetricBinsHead(nn.Module):
             # clb_pt and logbinomial_depth kernels on the card, their plain
             # twins on the CPU; both read the low-resolution condition and
             # centers, so no full-resolution K-channel tensor is formed.
+            # Each wrapper call is a host-only span of the tracer,
+            # pf.head.<kernel> (utils/profiling).
             # Under autocast (--amp) the twins keep their f32 arithmetic.
             with torch.autocast(last.device.type, enabled=False):
                 p, tn = clb.params_pt_fused(last_cat, b_embedding)
-                depth = fused_head.logbinomial_depth(
-                    p, tn, b_centers.permute(0, 2, 3, 1), self.min_temp,
-                    self.max_temp)[:, None]
+                with profiling.span("head.logbinomial_depth", device=False):
+                    depth = fused_head.logbinomial_depth(
+                        p, tn, b_centers.permute(0, 2, 3, 1), self.min_temp,
+                        self.max_temp)[:, None]
             return {"metric_depth": depth, "bin_centers": b_centers,
                     "b_embedding": b_embedding, "probs": None}
 

@@ -618,3 +618,49 @@ def test_nccl_refuses_two_ranks_on_one_card(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="one card|one device"):
         dist.init_distributed(device="cuda")
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.cuda
+def test_tracer_records_device_times_on_the_card(cuda):
+    """The span tracer on the card (utils/profiling): one record per
+    request, each span's device interval inside its parent's (one stream,
+    so its events are ordered), the wrapper calls' spans on the host only,
+    the head kernels' launches as counters, and
+    the depth the same bit for bit as with the tracer off."""
+    from patchfusion_tpu_torch.api import PatchFusion
+    from patchfusion_tpu_torch.tools._bench_util import tiny_config
+    from patchfusion_tpu_torch.utils import profiling
+
+    model = PatchFusion.from_config(tiny_config(), device="cuda",
+                                    dtype=torch.bfloat16, seed=0)
+    rng = np.random.default_rng(3)
+    lr = rng.random((1, 42, 56, 3), dtype=np.float32)
+    hr = rng.random((84, 112, 3), dtype=np.float32)
+    off = model.infer(lr, hr, cai_mode="m2", process_num=2)
+    profiling.enable()
+    try:
+        on = [model.infer(lr, hr, cai_mode="m2", process_num=2)
+              for _ in range(2)]
+        recs = profiling.records()
+    finally:
+        profiling.disable()
+        profiling.clear()
+    assert all(np.array_equal(off, d) for d in on) and len(recs) == 2
+    for rec in recs:
+        spans = rec["spans"]
+        assert rec["device"].startswith("cuda") and not rec["failed"]
+        assert spans[0]["dev_start_ms"] == 0.0
+        for s in spans[1:]:
+            p = spans[s["parent"]]
+            if s["name"].startswith(("pf.attn", "pf.head.")):
+                # host-only spans
+                assert s["dev_start_ms"] is None, s
+                continue
+            assert p["dev_start_ms"] <= s["dev_start_ms"] \
+                <= s["dev_end_ms"] <= p["dev_end_ms"], (s, p)
+        c = rec["counters"]
+        # the coarse head, then each of the 5 chunks' fine and PF heads
+        assert c["chunks"] == 5 and c["launches.clb_pt"] == 11
+        assert c["launches.logbinomial_depth"] \
+            + c["launches.logbinomial_depth_pixel"] == 11
+        assert c["h2d_bytes"] == (42 * 56 + 84 * 112) * 3 * 4
