@@ -32,6 +32,13 @@
    20 calls);
    host_us, the host's time to issue one call. Each row carries its bound
    and bound_share (bound_ms / ms).
+   The resize kernel (phase `resize`, in a child process of this
+   script, `--resize-child FILE`) at the five largest and five
+   smallest of the bilinear / bicubic call shapes that a full-width
+   DA-vitl and DA-vits m1 request makes (recorded through the wrapper),
+   at crop_resize_tiles' and the rN count map's: within one ulp of
+   F.interpolate (the bit-equal share printed), timed beside the plain
+   version, F.interpolate alone (library_*) and the bytes' bound.
 4. Builds DA-vitl PatchFusion at full width from
    configs/patchfusion_depthanything/depthanything_vitl_patchfusion_u4k.py
    in bf16 with seeded random weights, answers three m1 requests and one m2
@@ -209,6 +216,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -366,8 +374,8 @@ def check(cond: bool, msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 def _count_dicts():
-    from patchfusion_tpu_torch.ops import fused_head, vit_attention
-    return (fused_head.LAUNCHES, vit_attention.LAUNCHES)
+    from patchfusion_tpu_torch.ops import fused_head, resize, vit_attention
+    return (fused_head.LAUNCHES, vit_attention.LAUNCHES, resize.LAUNCHES)
 
 
 def reset_counts() -> None:
@@ -773,6 +781,142 @@ def phase_kernels():
     _fused_k128(results)
     _fused_split(results)
     return results
+
+
+# resize shapes off the DA request's path, timed beside its calls
+# (input shape, size, dtype, h_axis, w_axis; bilinear, align_corners)
+RESIZE_EXTRA = {
+    # crop_resize_tiles: an m1 chunk's 16 crops, 540x960 -> the tile
+    "crop_resize_tiles": ((16, 3, 540, 960), (392, 518), "bfloat16", -2, -1),
+    # AvgMap.resize in rN: the count map, reensemble canvas -> raw
+    "rN count map": ((1, 1568, 2072, 1), (2160, 3840), "float32", -3, -2),
+}
+
+
+def _request_resizes(core: str) -> dict:
+    """The bilinear and bicubic interpolates of one full-width m1 request
+    of DA-`core` (bf16, chunks of 16 tiles), recorded through the
+    wrapper: (shape, stride, dtype, mode, align_corners, scale, size,
+    h_axis, w_axis) -> calls."""
+    import torch
+    from patchfusion_tpu_torch.api import PatchFusion
+    from patchfusion_tpu_torch.ops import resize
+
+    model = PatchFusion.from_config(bench.published_config(core),
+                                    dtype=torch.bfloat16, seed=0)
+    lr, hr = _images(model, 0)
+    calls = {}
+    real = resize.resize_cuda
+
+    def spy(x, size, mode, ac, scale, h_axis, w_axis):
+        key = (tuple(x.shape), tuple(x.stride()),
+               str(x.dtype).split(".")[-1], mode, bool(ac), scale,
+               tuple(size), h_axis % x.ndim, w_axis % x.ndim)
+        calls[key] = calls.get(key, 0) + 1
+        return real(x, size, mode, ac, scale, h_axis, w_axis)
+
+    resize.resize_cuda = spy
+    try:
+        model.infer(lr, hr, cai_mode="m1", process_num=16)
+    finally:
+        resize.resize_cuda = real
+    del model
+    torch.cuda.empty_cache()
+    return calls
+
+
+def _resize_row(shape, stride, dtype, mode, ac, scale, size, h_axis,
+                w_axis) -> dict:
+    """The kernel, the plain version and F.interpolate alone (on the
+    (N, C, H, W) view, the library's call) at one call shape: their
+    times, the bytes' bound, and the kernel's distance from the plain
+    version."""
+    import torch
+    import torch.nn.functional as F
+    from patchfusion_tpu_torch.ops import resize
+
+    dt = getattr(torch, dtype)
+    span = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+    g = torch.Generator(device="cuda").manual_seed(len(shape) + span)
+    x = (torch.randn((span,), generator=g, device="cuda") * 3).to(dt) \
+        .as_strided(shape, stride)
+    lead, trail = shape[:h_axis], shape[w_axis + 1:]
+    n_lead, n_trail = int(np.prod(lead)), int(np.prod(trail))
+    nchw = x.reshape(n_lead, shape[h_axis], shape[w_axis], n_trail) \
+        .permute(0, 3, 1, 2)
+    opts = dict(mode=mode, align_corners=ac)
+    if scale is None:
+        opts["size"] = tuple(size)
+    else:
+        opts.update(scale_factor=tuple(scale), recompute_scale_factor=False)
+    args = (x, size, mode, ac, scale, h_axis, w_axis)
+    got = resize.interpolate(*args)
+    worst, equal = bench.ulp_stats(got, bench.library_resize(*args))
+    row = {"shape": list(shape), "dtype": dtype, "mode": mode,
+           "align_corners": ac, "scale": scale, "size": list(size),
+           "max_ulps": worst, "bit_equal_share": equal}
+    check(row["max_ulps"] <= 1, f"resize {row}: more than one ulp from "
+          "F.interpolate's NCHW kernel")
+    row.update(bench.timings(lambda: resize.interpolate(*args)))
+    row["plain_ms"] = bench.time_ms(lambda: resize.interpolate_plain(*args))
+    row.update(bench.timings(lambda: F.interpolate(nchw, **opts),
+                             "library_"))
+    nbytes = (x.numel() + got.numel()) * x.element_size()
+    row["bound_ms"], row["bound_by"] = bench.bound(nbytes)
+    row["bound_share_device"] = row["bound_ms"] / row["device_ms"]
+    row["library_over_kernel_device"] = (row["library_device_ms"]
+                                         / row["device_ms"])
+    return row
+
+
+def phase_resize() -> dict:
+    """The resize kernel at the five largest and five smallest call shapes
+    (by bytes) of a full-width DA-vitl and DA-vits m1 request, and at
+    RESIZE_EXTRA's: kernel, plain version and library times beside the
+    bytes' bound (one HBM read of the input, one write of the output)."""
+    out = {}
+    for core in ("vitl", "vits"):
+        calls = _request_resizes(core)
+        say(f"resize: {core} m1 request: {sum(calls.values())} calls of "
+            f"{len(calls)} shapes: "
+            + json.dumps({m: sum(n for k, n in calls.items() if k[3] == m)
+                          for m in ("bilinear", "bicubic")}))
+
+        def nbytes(key):
+            shape, _, dtype, _, _, _, size, ha, wa = key
+            n_in = int(np.prod(shape))
+            return n_in + n_in // (shape[ha] * shape[wa]) * size[0] * size[1]
+
+        keys = sorted(calls, key=nbytes, reverse=True)
+        picked = list(dict.fromkeys(keys[:5] + keys[-5:]))
+        for key in picked:
+            row = _resize_row(*key)
+            row["calls_per_request"] = calls[key]
+            out[(core, *key)] = row
+            say(f"resize {core}: " + json.dumps(row))
+    for name, (shape, size, dtype, ha, wa) in RESIZE_EXTRA.items():
+        stride = tuple(int(np.prod(shape[i + 1:]))
+                       for i in range(len(shape)))
+        row = _resize_row(shape, stride, dtype, "bilinear", True, None,
+                          size, ha % len(shape), wa % len(shape))
+        out[name] = row
+        say(f"resize {name}: " + json.dumps(row))
+    return out
+
+
+def phase_resize_child(out: Path) -> list:
+    """phase_resize in a child process of this script (`--resize-child
+    FILE`), its (key, row) pairs read back from FILE, each key as a JSON
+    list or name. The child's profiler starts
+    fresh: late in a long process torch.profiler on the H100 drops device
+    records window after window (17 of a resize row's 20 launches, three
+    windows running, after phase_kernels; all 20 in a fresh process)."""
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--resize-child",
+         str(out)], cwd=ROOT, timeout=900, check=False)
+    check(proc.returncode == 0, f"phase resize: child exited with code "
+          f"{proc.returncode}")
+    return json.loads(out.read_text())
 
 
 def phase_time_only(root: Path) -> dict:
@@ -3098,6 +3242,13 @@ BENCH_RUNS = {
 BENCH_TIMEOUT = 300
 # the DINOv2 blocks of each branch (the attention kernel's launches)
 VIT_BLOCKS = {"vitl": 24, "vitb": 12, "vits": 12, "beit": 0}
+# the resize kernel's launches at bf16, counted on the H100 (a DA m1 request
+# 45 + 2, m2 at process_num 16 138 + 5, r16 171 + 6; BEiT's four m1 and one
+# m2 at process_num 4 824 + 0): (bilinear of the coarse pass, bilinear of a
+# chunk: its DPT, bins heads and fusion U-Net, bicubic a pass: the DINOv2
+# pos-embed)
+RESIZES_PER_PASS = {"vitl": (13, 31, 1), "vitb": (13, 31, 1),
+                    "vits": (13, 31, 1), "beit": (13, 26, 0)}
 
 
 def _bench_want(args: dict, pallas: bool) -> dict:
@@ -3106,19 +3257,31 @@ def _bench_want(args: dict, pallas: bool) -> dict:
     heads), where a chunk is `process_num` regular tiles (all of them in
     one pass for None) or one group of rN's random tiles; the attention
     kernel once per block of the coarse pass and of each chunk's fine
-    pass with PF_ATTN_IMPL=pallas; nothing in float32."""
+    pass with PF_ATTN_IMPL=pallas; nothing in float32. The resize kernel
+    (RESIZES_PER_PASS) for the coarse pass and each chunk, in either
+    dtype, plus one bilinear for each batch of tiles (its crops: the
+    regular grid, then each group of rN's random tiles); in float32 two
+    more bilinear a head (the unfused head upsamples its embedding and
+    its centers), and in rN one more (the count map to the raw image)."""
     mode, pn = args["mode"], args["process_num"]
     regular = 16 if mode == "m1" else 49
     chunks = math.ceil(regular / (pn or regular))
+    batches = 1
     if mode.startswith("r"):
         group = pn or 1
         chunks += int(mode[1:]) // group
+        batches += int(mode[1:]) // group
     bf16 = args["dtype"] == "bf16"
     heads = (1 + 2 * chunks) if bf16 else 0
     blocks = VIT_BLOCKS[args["core"]] if bf16 and pallas else 0
+    coarse, chunk, bicubic = RESIZES_PER_PASS[args["core"]]
+    bilinear = coarse + batches + chunk * chunks \
+        + int(mode.startswith("r")) + (0 if bf16 else 2 * (1 + 2 * chunks))
     return {"clb_pt": heads, "logbinomial_depth": heads,
             "logbinomial_depth_pixel": 0, "clb_logbinomial_depth": 0,
-            "vit_attention": blocks * (1 + chunks)}
+            "vit_attention": blocks * (1 + chunks),
+            "resize_bilinear": bilinear,
+            "resize_bicubic": bicubic * (1 + chunks)}
 
 
 def _bench_process(env: dict, timeout: int):
@@ -3193,9 +3356,10 @@ def phase_bench() -> dict:
 def main(argv) -> int:
     root = ROOT
     child = argv[:1] == ["--dist-child"] and len(argv) == 3
+    resize_child = argv[:1] == ["--resize-child"] and len(argv) == 2
     if argv[:1] == ["--time-only"] and len(argv) == 2:
         root = Path(argv[1]).resolve()
-    elif argv and not child:
+    elif argv and not (child or resize_child):
         raise SystemExit("usage: chip_smoke.py [--time-only DIR]")
     if not (root / "patchfusion_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py needs the repository around it "
@@ -3205,6 +3369,14 @@ def main(argv) -> int:
 
     if child:
         dist_child(argv[1], Path(argv[2]))
+        return 0
+    if resize_child:
+        from patchfusion_tpu_torch.ops import cuda_lib
+
+        phase_card()
+        cuda_lib.load_kernels()
+        rows = phase_resize()
+        Path(argv[1]).write_text(json.dumps(list(rows.items())))
         return 0
 
     t0 = time.perf_counter()
@@ -3226,6 +3398,9 @@ def main(argv) -> int:
 
     timed("build", phase_build)
     kres = timed("kernels", phase_kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        resize_rows = timed("resize", phase_resize_child,
+                            Path(tmp) / "resize_rows.json")
     model = build_vitl()
     main_launches, einsum_depths, m2_ms = timed("full_width",
                                                 phase_full_width, model)
@@ -3252,6 +3427,9 @@ def main(argv) -> int:
                     fused_launches["clb_logbinomial_depth"]}
     for name, n in launches.items():
         check(n > 0, f"{name} never ran on its path")
+    check(main_launches["resize_bilinear"] > 0
+          and main_launches["resize_bicubic"] > 0,
+          f"the resize kernel did not run on the main path: {main_launches}")
     for name in ("clb_pt", "logbinomial_depth"):
         check(beit_launches[name] > 0, f"{name} never ran on the BEiT path")
     kernels = []
@@ -3351,6 +3529,19 @@ def main(argv) -> int:
                             "library_device_ms", "library_device_windows",
                             "library_host_us")
                            if key in r}})
+    kernels.append({
+        "name": "resize", "route": "cuda",
+        "source": "patchfusion_tpu_torch/csrc/resize.cu",
+        "replaces": None,
+        "launches": {k: main_launches[k]
+                     for k in ("resize_bilinear", "resize_bicubic")},
+        "rows": [{"at": key,
+                  **{k: row[k] for k in (
+                      "max_ulps", "bit_equal_share", "ms", "device_ms",
+                      "host_us", "plain_ms", "library_ms",
+                      "library_device_ms", "bound_ms",
+                      "bound_share_device", "library_over_kernel_device")}}
+                 for key, row in resize_rows]})
     say(f"total: {time.perf_counter() - t0:.1f} s")
     # the card again, so that the end of a long run's output holds it
     say(card.splitlines()[0] if card else "nvidia-smi: no card listed")

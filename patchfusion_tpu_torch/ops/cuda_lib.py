@@ -8,7 +8,7 @@ sources and flags>/`; `load_kernels` loads it with ctypes once per process.
 The library links the CUDA driver (`-lcuda`) for the attention kernel's
 TMA tensor maps (`cuTensorMapEncodeTiled`).
 The helpers below are the argument checks the kernel wrappers
-(`ops/fused_head.py`, `ops/vit_attention.py`) share.
+(`ops/fused_head.py`, `ops/vit_attention.py`, `ops/resize.py`) share.
 """
 
 from __future__ import annotations
@@ -125,8 +125,10 @@ def load_kernels() -> ctypes.CDLL:
         bind_clb_depth(lib)
         lib.pf_vit_attention.argtypes = (
             [vp] * 4 + [i32] * 4 + [i64] * 9 + [f32] + [i32] * 3 + [vp])
+        lib.pf_resize.argtypes = (
+            [vp] * 2 + [i32] * 8 + [i64] * 4 + [f32] * 2 + [i32] * 2 + [vp])
         for fn in (lib.pf_logbinomial_depth, lib.pf_clb_pt,
-                   lib.pf_vit_attention):
+                   lib.pf_vit_attention, lib.pf_resize):
             fn.restype = i32
         lib.pf_clb_tc_smem.argtypes = [i32] * 4
         lib.pf_clb_depth_smem.argtypes = [ctypes.POINTER(i32), i32, i32]

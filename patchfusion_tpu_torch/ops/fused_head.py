@@ -10,7 +10,9 @@ Each kernel has three pieces here:
     hand-written kernel on the current stream, or raises. It never falls
     back from CUDA to the twin.
   * the plain twin (`*_plain`), a direct transcription of the JAX
-    `*_reference` functions (pallas_head.py:670-745).
+    `*_reference` functions (pallas_head.py:670-745), plain PyTorch on
+    any device: it resizes with `resize.interpolate_plain`, never with the
+    resize kernel.
   * a launch count in `LAUNCHES`, raised by one per kernel launch and
     nowhere else.
 
@@ -40,7 +42,8 @@ import torch.nn.functional as F
 
 from patchfusion_tpu_torch.ops.cuda_lib import (load_kernels, on_cpu,
                                                 raise_on, stream)
-from patchfusion_tpu_torch.ops.resize import _source_coords, interpolate
+from patchfusion_tpu_torch.ops.resize import (_source_coords,
+                                              interpolate_plain)
 
 CLB_HIDDEN = 80  # the hidden width csrc/common.cuh is compiled for
 
@@ -99,8 +102,8 @@ def logbinomial_depth_plain(p: torch.Tensor, t: torch.Tensor,
     """Plain PyTorch twin of the kernel: logbinomial_depth_reference."""
     _, oh, ow = p.shape
     k = centers.shape[-1]
-    cent = interpolate(centers.to(torch.float32), (oh, ow), mode="bilinear",
-                       align_corners=True)
+    cent = interpolate_plain(centers.to(torch.float32), (oh, ow),
+                             mode="bilinear", align_corners=True)
     tv = t.to(torch.float32) * (max_temp - min_temp) + min_temp
     eps = 1e-4
     pc = p.to(torch.float32).clamp(eps, 1.0)[..., None]
@@ -230,7 +233,8 @@ def clb_pt_plain(last_cat: torch.Tensor, cond_lo: torch.Tensor,
     w1 = w1.to(torch.float32)
     a = torch.einsum("bhwc,cf->bhwf", last_cat.to(torch.float32), w1[:cin])
     bb = torch.einsum("bhwc,cf->bhwf", cond_lo.to(torch.float32), w1[cin:])
-    bb = interpolate(bb, (oh, ow), mode="bilinear", align_corners=True)
+    bb = interpolate_plain(bb, (oh, ow), mode="bilinear",
+                           align_corners=True)
     h = a + bb + b1.to(torch.float32)
     h = F.gelu(h, approximate="tanh")
     pt = F.softplus(torch.einsum("bhwf,fo->bhwo", h, w2.to(torch.float32))

@@ -9,6 +9,14 @@ source index, src = (dst * in) // out in exact integer arithmetic, which
 signature: the spatial axes are `h_axis`/`w_axis` (default NHWC), so callers
 with NCHW tensors pass `h_axis=-2, w_axis=-1`.
 
+On a CUDA tensor a bilinear or bicubic `interpolate` launches the resize
+kernel (`csrc/resize.cu`), which computes F.interpolate's arithmetic; on
+any other tensor it takes the plain version `interpolate_plain`, the
+F.interpolate route the CPU tests hold against the JAX package.
+`LAUNCHES` counts the kernel's launches by mode. Under a gradient the
+kernel runs inside `_ResizeFunction`, whose backward is the plain
+version's vector-Jacobian product, recomputed.
+
 `NetResizer`, `minimal_multiple_resize_size` and the numpy
 `resize_matrix` / `tap_plan` (the host-side resizes of the metrics and the
 datasets) are copied from the JAX package (pure host arithmetic).
@@ -16,11 +24,18 @@ datasets) are copied from the JAX package (pure host arithmetic).
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from patchfusion_tpu_torch.ops.cuda_lib import load_kernels, raise_on, stream
+
+# kernel launches since the count was last set to 0
+LAUNCHES = {"resize_bilinear": 0, "resize_bicubic": 0}
 
 
 def interpolate(x: torch.Tensor, size: Tuple[int, int],
@@ -34,12 +49,10 @@ def interpolate(x: torch.Tensor, size: Tuple[int, int],
     `scale_factor=` coordinate mapping the DINOv2 pos-embed uses; the output
     size must then be floor(in * scale) == size. Axes whose size is already
     `size` (and carry no explicit scale) are left untouched, as in the JAX
-    version.
+    version. A bilinear or bicubic call on a CUDA tensor launches the
+    resize kernel; any other tensor takes `interpolate_plain`.
     """
-    h_axis = h_axis % x.ndim
-    w_axis = w_axis % x.ndim
-    if w_axis != h_axis + 1:
-        raise ValueError("interpolate needs adjacent (h, w) axes")
+    h_axis, w_axis = _axes(x, h_axis, w_axis)
     in_h, in_w = x.shape[h_axis], x.shape[w_axis]
     if scale is None and (in_h, in_w) == tuple(size):
         return x
@@ -50,11 +63,45 @@ def interpolate(x: torch.Tensor, size: Tuple[int, int],
                 x = x.index_select(axis, nearest_index(n_out, n_in,
                                                        x.device))
         return x
+    if x.device.type != "cuda":
+        return interpolate_plain(x, size, mode, align_corners, scale,
+                                 h_axis, w_axis)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ResizeFunction.apply(x, tuple(size), mode, align_corners,
+                                     scale, h_axis, w_axis)
+    return resize_cuda(x, size, mode, align_corners, scale, h_axis, w_axis)
+
+
+def _axes(x: torch.Tensor, h_axis: int, w_axis: int) -> Tuple[int, int]:
+    h_axis = h_axis % x.ndim
+    w_axis = w_axis % x.ndim
+    if w_axis != h_axis + 1:
+        raise ValueError("interpolate needs adjacent (h, w) axes")
+    return h_axis, w_axis
+
+
+def _planes(x: torch.Tensor, h_axis: int, w_axis: int):
+    """(lead shape, trail shape, L, T): the axes before H flattened to L,
+    those after W to T."""
     lead = x.shape[:h_axis]
     trail = x.shape[w_axis + 1:]
+    return lead, trail, math.prod(lead), math.prod(trail)
+
+
+def interpolate_plain(x: torch.Tensor, size: Tuple[int, int],
+                      mode: str = "bilinear", align_corners: bool = False,
+                      scale: Optional[Tuple[float, float]] = None,
+                      h_axis: int = -3, w_axis: int = -2) -> torch.Tensor:
+    """The plain version of a bilinear or bicubic `interpolate`:
+    `F.interpolate` on the (N, C, H, W) view of `x`, on any device. An
+    unresized plane with no explicit scale is `x` itself."""
+    h_axis, w_axis = _axes(x, h_axis, w_axis)
+    lead, trail, n_lead, n_trail = _planes(x, h_axis, w_axis)
+    in_h, in_w = x.shape[h_axis], x.shape[w_axis]
+    if scale is None and (in_h, in_w) == tuple(size):
+        return x
     # to (N, C, H, W): trailing axes become channels, leading ones batch
-    y = x.reshape(int(np.prod(lead, dtype=np.int64)), in_h, in_w,
-                  int(np.prod(trail, dtype=np.int64)))
+    y = x.reshape(n_lead, in_h, in_w, n_trail)
     y = y.permute(0, 3, 1, 2)
     if scale is not None:
         y = F.interpolate(y, scale_factor=tuple(float(s) for s in scale),
@@ -68,6 +115,96 @@ def interpolate(x: torch.Tensor, size: Tuple[int, int],
                           align_corners=align_corners)
     out_h, out_w = y.shape[-2:]
     return y.permute(0, 2, 3, 1).reshape(*lead, out_h, out_w, *trail)
+
+
+def _axis_scale(n_in: int, n_out: int, align_corners: bool,
+                scale: Optional[float]) -> float:
+    """PyTorch's area_pixel_compute_scale in float32: the source step per
+    output index that its CUDA kernels take from the host."""
+    if align_corners:
+        return float(np.float32(n_in - 1) / np.float32(n_out - 1)) \
+            if n_out > 1 else 0.0
+    if scale is not None and scale > 0:
+        return float(np.float32(1.0 / scale))
+    return float(np.float32(n_in) / np.float32(n_out))
+
+
+@functools.lru_cache(maxsize=None)
+def _steps(in_h: int, in_w: int, out_h: int, out_w: int,
+           align_corners: bool, scale: Optional[Tuple[float, float]]
+           ) -> Tuple[float, float, bool]:
+    """The kernel's (rh, rw, align_corners) for one resize, once per
+    shape: each axis's `_axis_scale`, or identity taps where the plane is
+    unresized, as F.interpolate copies it. Raises where an explicit scale
+    gives another size."""
+    if scale is not None:
+        got = tuple(int(math.floor(n * s))
+                    for n, s in zip((in_h, in_w), scale))
+        if got != (out_h, out_w):
+            raise ValueError(f"scale {scale} gives {got}, not "
+                             f"{(out_h, out_w)}")
+    if (in_h, in_w) == (out_h, out_w):
+        return 1.0, 1.0, False
+    scale_h, scale_w = (None, None) if scale is None else scale
+    return (_axis_scale(in_h, out_h, align_corners, scale_h),
+            _axis_scale(in_w, out_w, align_corners, scale_w), align_corners)
+
+
+def resize_cuda(x: torch.Tensor, size: Tuple[int, int], mode: str,
+                align_corners: bool,
+                scale: Optional[Tuple[float, float]], h_axis: int,
+                w_axis: int) -> torch.Tensor:
+    """A bilinear or bicubic `interpolate` of a CUDA tensor by the kernel:
+    x viewed as (L, H, W, T), the output allocated as (*lead, out_h,
+    out_w, *trail). Raises on what the kernel does not take."""
+    if mode not in ("bilinear", "bicubic"):
+        raise ValueError(f"the resize kernel has no mode {mode!r}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the resize kernel takes bfloat16 and float32, "
+                        f"got {x.dtype}")
+    h_axis, w_axis = _axes(x, h_axis, w_axis)
+    lead, trail, n_lead, n_trail = _planes(x, h_axis, w_axis)
+    in_h, in_w = x.shape[h_axis], x.shape[w_axis]
+    out_h, out_w = (int(s) for s in size)
+    rh, rw, ac = _steps(in_h, in_w, out_h, out_w, bool(align_corners),
+                        None if scale is None else
+                        (float(scale[0]), float(scale[1])))
+    x4 = x.reshape(n_lead, in_h, in_w, n_trail)
+    out = torch.empty((n_lead, out_h, out_w, n_trail), dtype=x.dtype,
+                      device=x.device)
+    if out.numel() == 0:
+        return out.reshape(*lead, out_h, out_w, *trail)
+    sl, sh, sw, st = x4.stride()
+    err = load_kernels().pf_resize(
+        x4.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
+        int(mode == "bicubic"), n_lead, in_h, in_w, out_h, out_w, n_trail,
+        sl, sh, sw, st, rh, rw, int(ac), x.device.index, stream(x.device))
+    raise_on(err, "resize")
+    LAUNCHES["resize_" + mode] += 1
+    return out.reshape(*lead, out_h, out_w, *trail)
+
+
+class _ResizeFunction(torch.autograd.Function):
+    """The kernel's forward; the backward is the plain version's
+    vector-Jacobian product, recomputed on an input of the same shape
+    (the map is linear, so the input's values do not enter it)."""
+
+    @staticmethod
+    def forward(ctx, x, size, mode, align_corners, scale, h_axis, w_axis):
+        ctx.args = (size, mode, align_corners, scale, h_axis, w_axis)
+        ctx.x_meta = (x.shape, x.dtype, x.device)
+        return resize_cuda(x, size, mode, align_corners, scale, h_axis,
+                           w_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        shape, dtype, device = ctx.x_meta
+        with torch.enable_grad():
+            x = torch.zeros(shape, dtype=dtype, device=device,
+                            requires_grad=True)
+            y = interpolate_plain(x, *ctx.args)
+            (gx,) = torch.autograd.grad(y, x, grad)
+        return gx, None, None, None, None, None, None
 
 
 def nearest_index(out_size: int, in_size: int,

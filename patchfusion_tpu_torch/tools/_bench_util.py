@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import time
@@ -55,7 +56,8 @@ ZOE_CONFIG = CONFIGS.parent / "patchfusion_zoedepth" / \
     "zoedepth_patchfusion_u4k.py"
 
 # substrings of the port's kernels' names in a profile
-PORT_KERNEL_NAMES = ("vit_attention_kernel", "clb_", "logbinomial_depth")
+PORT_KERNEL_NAMES = ("vit_attention_kernel", "clb_", "logbinomial_depth",
+                     "resize_")
 
 
 def say(*args) -> None:
@@ -72,11 +74,12 @@ def sync(device: torch.device) -> None:
 
 
 def launch_counts() -> Dict[str, int]:
-    """The kernel wrappers' launch counts (ops/fused_head.LAUNCHES and
-    ops/vit_attention.LAUNCHES) as one dict."""
-    from patchfusion_tpu_torch.ops import fused_head, vit_attention
+    """The kernel wrappers' launch counts (ops/fused_head.LAUNCHES,
+    ops/vit_attention.LAUNCHES and ops/resize.LAUNCHES) as one dict."""
+    from patchfusion_tpu_torch.ops import fused_head, resize, vit_attention
 
-    return {**fused_head.LAUNCHES, **vit_attention.LAUNCHES}
+    return {**fused_head.LAUNCHES, **vit_attention.LAUNCHES,
+            **resize.LAUNCHES}
 
 
 @contextlib.contextmanager
@@ -394,6 +397,42 @@ def timings(fn, prefix: str = "") -> dict:
         device_ms(fn)
     out["host_us"] = host_us(fn)
     return {prefix + k: v for k, v in out.items()}
+
+
+def library_resize(x: torch.Tensor, size, mode: str, align_corners: bool,
+                   scale, h_axis: int, w_axis: int) -> torch.Tensor:
+    """`interpolate_plain` of a contiguous (N, C, H, W) copy of x (the axes
+    before H as N, those after W as C), returned in x's layout: PyTorch's
+    NCHW kernels, whose arithmetic the resize kernel computes."""
+    from patchfusion_tpu_torch.ops.resize import interpolate_plain
+
+    ha, wa = h_axis % x.ndim, w_axis % x.ndim
+    lead, trail = x.shape[:ha], x.shape[wa + 1:]
+    nchw = x.reshape(math.prod(lead), x.shape[ha], x.shape[wa],
+                     math.prod(trail)).permute(0, 3, 1, 2).contiguous()
+    y = interpolate_plain(nchw, size, mode, align_corners, scale, -2, -1)
+    return y.permute(0, 2, 3, 1).reshape(*lead, *y.shape[-2:], *trail)
+
+
+def ulp_stats(a: torch.Tensor, b: torch.Tensor) -> Tuple[int, float]:
+    """(largest |a - b| in units in the last place of their dtype, float32
+    or bfloat16; the share of elements that are bit-equal): the distance
+    of their bit patterns, ordered so that -0 and +0 are one value, taken
+    in chunks so that a call's output of gigabytes fits beside it."""
+    itype, mag = {torch.float32: (torch.int32, 0x7fffffff),
+                  torch.bfloat16: (torch.int16, 0x7fff)}[a.dtype]
+
+    def ordered(t):
+        i = t.view(itype).to(torch.int64)
+        return torch.where(i < 0, -(i & mag), i)
+
+    fa, fb = a.contiguous().view(-1), b.contiguous().view(-1)
+    worst, equal, step = 0, 0, 1 << 26
+    for i in range(0, fa.numel(), step):
+        d = (ordered(fa[i:i + step]) - ordered(fb[i:i + step])).abs()
+        worst = max(worst, int(d.max()))
+        equal += int((d == 0).sum())
+    return worst, equal / max(fa.numel(), 1)
 
 
 # ---------------------------------------------------------------------------

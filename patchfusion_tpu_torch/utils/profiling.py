@@ -44,7 +44,8 @@ The record closes after the entry point's own blocking copy, which has
 drained the stream, so waiting for the request's last event costs nothing;
 it then reads every event, returns them to the pool, and adds the
 per-request launch counts of the hand-written kernels (`ops/fused_head.
-LAUNCHES`, `ops/vit_attention.LAUNCHES`) as counters `launches.<kernel>`.
+LAUNCHES`, `ops/vit_attention.LAUNCHES`, `ops/resize.LAUNCHES`) as
+counters `launches.<kernel>`.
 Records are kept in memory, the newest MAX_RECORDS (the oldest dropped
 and counted, `dropped()`), as plain values through `records()`:
 
@@ -246,8 +247,9 @@ class _Request:
 
 
 def _launches() -> Dict[str, int]:
-    from patchfusion_tpu_torch.ops import fused_head, vit_attention
-    return {**fused_head.LAUNCHES, **vit_attention.LAUNCHES}
+    from patchfusion_tpu_torch.ops import fused_head, resize, vit_attention
+    return {**fused_head.LAUNCHES, **vit_attention.LAUNCHES,
+            **resize.LAUNCHES}
 
 
 @contextlib.contextmanager

@@ -664,3 +664,291 @@ def test_tracer_records_device_times_on_the_card(cuda):
         assert c["launches.logbinomial_depth"] \
             + c["launches.logbinomial_depth_pixel"] == 11
         assert c["h2d_bytes"] == (42 * 56 + 84 * 112) * 3 * 4
+
+
+# -- the resize kernel (csrc/resize.cu through ops/resize.interpolate) -----
+#
+# The kernel computes the arithmetic of F.interpolate's NCHW CUDA kernels,
+# FMAs where nvcc contracted theirs, so it is held to F.interpolate of a
+# contiguous NCHW copy (_bench_util.library_resize) to one unit in the
+# last place of the output dtype: an FMA that stood elsewhere would part
+# them by far more where the sums cancel. (PyTorch's own channels-last
+# bilinear kernel, taken from 16 channels up, contracts otherwise; the
+# request's calls, NCHW planes and the bicubic pos-embed, never take it.)
+# The share that is bit-equal is printed.
+
+def _held_to_library(x, size, mode, ac, scale, h_axis, w_axis):
+    """The kernel's resize of x against the library's; returns the
+    bit-equal share."""
+    from patchfusion_tpu_torch.ops import resize
+    from patchfusion_tpu_torch.tools._bench_util import (library_resize,
+                                                         ulp_stats)
+
+    before = dict(resize.LAUNCHES)
+    got = resize.interpolate(x, size, mode, ac, scale, h_axis, w_axis)
+    want = library_resize(x, size, mode, ac, scale, h_axis, w_axis)
+    launched = {k: v - before[k] for k, v in resize.LAUNCHES.items()}
+    assert launched == {"resize_bilinear": int(mode == "bilinear"),
+                        "resize_bicubic": int(mode == "bicubic")}
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.is_contiguous()
+    worst, equal = ulp_stats(got, want)
+    assert worst <= 1, (tuple(x.shape), size, mode, ac, scale, worst)
+    return equal
+
+
+def _seeded(shape, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
+
+
+@pytest.fixture(scope="module")
+def request_resizes():
+    """Every bilinear and bicubic interpolate of a full-width DA-vitl and
+    DA-vits m1 request (2160x3840, bf16, chunks of 16 tiles), recorded
+    through the wrapper: (shape, stride, dtype, mode, align_corners,
+    scale, size, h_axis, w_axis) -> calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from patchfusion_tpu_torch.api import PatchFusion
+    from patchfusion_tpu_torch.ops import resize
+    from patchfusion_tpu_torch.tools._bench_util import published_config
+
+    calls = {}
+    real = resize.resize_cuda
+
+    def spy(x, size, mode, align_corners, scale, h_axis, w_axis):
+        key = (tuple(x.shape), tuple(x.stride()), x.dtype, mode,
+               bool(align_corners), scale, tuple(size), h_axis % x.ndim,
+               w_axis % x.ndim)
+        calls[key] = calls.get(key, 0) + 1
+        return real(x, size, mode, align_corners, scale, h_axis, w_axis)
+
+    rng = np.random.default_rng(11)
+    hr = rng.random((2160, 3840, 3), dtype=np.float32)
+    resize.resize_cuda = spy
+    try:
+        for core in ("vitl", "vits"):
+            model = PatchFusion.from_config(published_config(core),
+                                            dtype=torch.bfloat16, seed=0)
+            lr = resize.interpolate(
+                torch.from_numpy(hr)[None],
+                model.tile_cfg.patch_process_shape, mode="bilinear",
+                align_corners=True).numpy()
+            model.infer(lr, hr, cai_mode="m1", process_num=16)
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        resize.resize_cuda = real
+    return calls
+
+
+@pytest.mark.cuda
+def test_resize_kernel_at_every_call_of_a_request(cuda, request_resizes):
+    """Each shape a vitl and a vits m1 request resizes, on a seeded input
+    of that shape and strides, against F.interpolate."""
+    # the pos-embed (bicubic, channels last), the DPT, fusion and bins
+    # heads' upsamples and the tiles' crop resize
+    assert any(k[3] == "bicubic" for k in request_resizes)
+    assert len(request_resizes) >= 20
+    shares = []
+    for (shape, stride, dtype, mode, ac, scale, size, ha, wa) in \
+            request_resizes:
+        span = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+        x = _seeded((span,), dtype, cuda).as_strided(shape, stride)
+        shares.append(_held_to_library(x, size, mode, ac, scale, ha, wa))
+        del x
+    print(f"resize kernel vs F.interpolate over {len(shares)} request "
+          f"shapes: bit-equal share min {min(shares):.6f}, mean "
+          f"{np.mean(shares):.6f}")
+
+
+# the rN count map (the 4K tiles' reensemble canvas to the raw image, f32,
+# channels last with one channel) and the BEiT DPT head's upsamples at
+# 384x512 tiles, four a chunk (models/beit.py: the refinenets, then x2)
+RESIZE_SHAPES = [
+    ((1, 1568, 2072, 1), (2160, 3840), torch.float32, -3, -2),
+    ((4, 256, 12, 16), (24, 32), torch.bfloat16, -2, -1),
+    ((4, 256, 24, 32), (48, 64), torch.bfloat16, -2, -1),
+    ((4, 256, 48, 64), (96, 128), torch.bfloat16, -2, -1),
+    ((4, 256, 96, 128), (192, 256), torch.bfloat16, -2, -1),
+    ((4, 128, 192, 256), (384, 512), torch.bfloat16, -2, -1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,size,dtype,h_axis,w_axis", RESIZE_SHAPES)
+def test_resize_kernel_at_rn_and_beit_shapes(cuda, shape, size, dtype,
+                                             h_axis, w_axis):
+    x = _seeded(shape, dtype, cuda)
+    _held_to_library(x, size, "bilinear", True, None, h_axis, w_axis)
+
+
+# (input shape, size, scale, h_axis, w_axis): 1-pixel axes in and out, a
+# downsample, an axis of equal size, both with an explicit scale, channels
+# last (vector and scalar channel paths), odd widths across the 16-byte
+# store grid
+EDGE_CASES = [
+    ((3, 2, 1, 1), (5, 7), None, -2, -1),
+    ((3, 2, 1, 9), (4, 13), None, -2, -1),
+    ((2, 3, 5, 7), (1, 1), None, -2, -1),
+    ((2, 3, 5, 7), (1, 9), None, -2, -1),
+    ((2, 3, 37, 53), (19, 20), None, -2, -1),
+    ((5, 16, 37), (32, 37), None, -2, -1),
+    ((1, 37, 37, 64), (28, 37), (28.1 / 37, 37.1 / 37), -3, -2),
+    ((1, 37, 37, 64), (37, 37), (37.1 / 37, 37.1 / 37), -3, -2),
+    ((2, 9, 11, 24), (17, 23), None, -3, -2),
+    ((2, 9, 11, 3), (17, 23), None, -3, -2),
+    ((7, 13, 3), (29, 13), None, -2, -1),
+    ((5, 19, 37), (31, 3), None, -2, -1),
+    ((1, 3, 600, 1001), (391, 517), None, -2, -1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ac", [True, False])
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_resize_kernel_edge_cases(cuda, case, dtype, mode, ac):
+    shape, size, scale, h_axis, w_axis = case
+    x = _seeded(shape, dtype, cuda, seed=len(shape))
+    _held_to_library(x, size, mode, ac, scale, h_axis, w_axis)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
+def test_resize_kernel_takes_strided_and_unaligned_inputs(cuda, mode):
+    """A channels-last view of an NCHW tensor (channel stride not 1), a
+    start off the 16-byte grid and a row stride wider than the row: the
+    scalar channel path, and the plane path's gathers."""
+    x = _seeded((2, 24, 9, 11), torch.bfloat16, cuda).permute(0, 2, 3, 1)
+    _held_to_library(x, (17, 23), mode, False, None, -3, -2)
+    y = _seeded((2, 9, 11, 25), torch.float32, cuda)[..., 1:]
+    _held_to_library(y, (17, 23), mode, True, None, -3, -2)
+    z = _seeded((4, 15, 40), torch.bfloat16, cuda)[:, :, 3:34]
+    _held_to_library(z, (29, 61), mode, True, None, -2, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    ((2, 4, 14, 19), (28, 37), "bilinear", True, None, -2, -1),
+    ((1, 37, 37, 32), (28, 37), "bicubic", False, (28.1 / 37, 37.1 / 37),
+     -3, -2)])
+def test_resize_gradient_is_the_plain_versions(cuda, dtype, case):
+    """Under a gradient the kernel runs in an autograd Function whose
+    backward is the plain version's vector-Jacobian product: the same
+    gradient as F.interpolate's, up to the order of its backward kernel's
+    atomic adds, which in bf16 round each partial sum to bf16 (so two runs
+    of that kernel differ by a few bf16 ulps of the largest gradient)."""
+    from patchfusion_tpu_torch.ops import resize
+    from patchfusion_tpu_torch.tools._bench_util import (library_resize,
+                                                         ulp_stats)
+
+    shape, size, mode, ac, scale, ha, wa = case
+    x = _seeded(shape, dtype, cuda).requires_grad_()
+    before = dict(resize.LAUNCHES)
+    y = resize.interpolate(x, size, mode, ac, scale, ha, wa)
+    assert resize.LAUNCHES["resize_" + mode] == before["resize_" + mode] + 1
+    g = _seeded(y.shape, dtype, cuda, seed=1)
+    (got,) = torch.autograd.grad(y, x, g)
+    (want,) = torch.autograd.grad(
+        resize.interpolate_plain(x, size, mode, ac, scale, ha, wa), x, g)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=2 ** -6 * float(want.abs().max()))
+    else:
+        torch.testing.assert_close(got, want)
+    assert ulp_stats(y.detach(), library_resize(
+        x.detach(), size, mode, ac, scale, ha, wa))[0] <= 1
+
+
+@pytest.mark.cuda
+def test_resize_kernel_rejects_what_it_does_not_take(cuda):
+    from patchfusion_tpu_torch.ops import resize
+
+    with pytest.raises(TypeError):
+        resize.interpolate(torch.zeros(2, 3, 4, 5, device=cuda,
+                                       dtype=torch.float16), (8, 10),
+                           h_axis=-2, w_axis=-1)
+    # one row's source rows outgrow a block: pf_resize refuses it
+    with pytest.raises(RuntimeError, match="resize kernel launch failed"):
+        resize.interpolate(torch.zeros(1, 1, 8, 8, device=cuda), (8, 30000),
+                           h_axis=-2, w_axis=-1)
+    with pytest.raises(ValueError):  # a scale that gives another size
+        resize.interpolate(torch.zeros(1, 8, 8, 4, device=cuda), (5, 5),
+                           mode="bicubic", scale=(0.5, 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_twins_launch_no_resize_kernel(cuda, dtype):
+    """The head kernels' plain twins, which the card tests and chip_smoke
+    hold the kernels against, stay plain PyTorch on the card: their
+    bilinear resizes (centers and the condition's projection, IHxIW ->
+    OHxOW) are interpolate_plain's, and launch no resize kernel."""
+    from patchfusion_tpu_torch.ops import resize
+
+    rng = np.random.default_rng(3)
+    p = torch.from_numpy(rng.random((B, OH, OW), dtype=np.float32) * 0.98
+                         + 0.01).to(cuda)
+    t = torch.from_numpy(rng.random((B, OH, OW), dtype=np.float32)).to(cuda)
+    centers = _nhwc(rng.random((B, IH, IW, K), dtype=np.float32) * 70 + 1,
+                    dtype, cuda, "nchw-view")
+    last = _nhwc(rng.standard_normal((B, OH, OW, CIN), dtype=np.float32),
+                 dtype, cuda, "nchw-view")
+    cond = _nhwc(rng.standard_normal((B, IH, IW, CC), dtype=np.float32),
+                 dtype, cuda, "nchw-view")
+    ws = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32) * 0.1)
+          .to(cuda, dtype) for s in ((CIN + CC, HID), (HID,), (HID, 4),
+                                     (4,))]
+    before = dict(resize.LAUNCHES)
+    fused_head.logbinomial_depth_plain(p, t, centers)
+    fused_head.clb_pt_plain(last, cond, *ws)
+    fused_head.clb_logbinomial_depth_plain(last, cond, centers, *ws)
+    torch.cuda.synchronize()
+    assert resize.LAUNCHES == before
+    # the same resize through the wrapper is the kernel's
+    resize.interpolate(centers.to(torch.float32), (OH, OW),
+                       align_corners=True)
+    assert resize.LAUNCHES["resize_bilinear"] == \
+        before["resize_bilinear"] + 1
+
+
+@pytest.mark.cuda
+def test_request_runs_no_library_resize(cuda):
+    """A tiny m2 request on the card launches no upsample kernel of the
+    library: every bilinear and bicubic resize is the kernel's, counted in
+    LAUNCHES once per call."""
+    from patchfusion_tpu_torch.api import PatchFusion
+    from patchfusion_tpu_torch.ops import resize
+    from patchfusion_tpu_torch.tools._bench_util import tiny_config
+
+    model = PatchFusion.from_config(tiny_config(), device="cuda",
+                                    dtype=torch.bfloat16, seed=0)
+    lr, hr = _tiny_images()
+    model.infer(lr, hr, cai_mode="m2", process_num=2)
+    calls = {"bilinear": 0, "bicubic": 0}
+    real = resize.resize_cuda
+
+    def spy(x, size, mode, *args):
+        calls[mode] += 1
+        return real(x, size, mode, *args)
+
+    before = dict(resize.LAUNCHES)
+    resize.resize_cuda = spy
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            model.infer(lr, hr, cai_mode="m2", process_num=2)
+            torch.cuda.synchronize()
+    finally:
+        resize.resize_cuda = real
+    names = {e.key for e in prof.key_averages()}
+    assert not [n for n in names if "upsample_bilinear2d" in n
+                or "upsample_bicubic2d" in n], names
+    assert any("resize_planes" in n for n in names), names
+    assert calls["bilinear"] > 0
+    assert {m: resize.LAUNCHES["resize_" + m] - before["resize_" + m]
+            for m in calls} == calls

@@ -39,6 +39,65 @@ def test_interpolate_matches_jax(mode, align, in_hw, out_hw, scale):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+RESIZE_CASES = [
+    ("bilinear", True, (7, 9), (16, 20), None),
+    ("bilinear", True, (28, 37), (14, 19), None),
+    ("bilinear", False, (12, 10), (29, 17), None),
+    ("bicubic", False, (37, 37), (28, 37), (28.1 / 37, 37.1 / 37)),
+    ("bicubic", False, (37, 37), (3, 4), (3.1 / 37, 4.1 / 37)),
+]
+
+
+@pytest.mark.parametrize("mode,align,in_hw,out_hw,scale", RESIZE_CASES)
+def test_cpu_interpolate_is_the_plain_version(monkeypatch, mode, align,
+                                              in_hw, out_hw, scale):
+    """On the CPU a bilinear or bicubic interpolate is the plain version
+    (F.interpolate), bit for bit, and launches no kernel."""
+    monkeypatch.setattr(resize, "LAUNCHES",
+                        {"resize_bilinear": 0, "resize_bicubic": 0})
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, *in_hw, 3)).astype(np.float32))
+    got = resize.interpolate(x, out_hw, mode=mode, align_corners=align,
+                             scale=scale)
+    want = resize.interpolate_plain(x, out_hw, mode=mode,
+                                    align_corners=align, scale=scale)
+    assert torch.equal(got, want)
+    assert resize.LAUNCHES == {"resize_bilinear": 0, "resize_bicubic": 0}
+
+
+@pytest.mark.parametrize("mode,align,in_hw,out_hw,scale", RESIZE_CASES)
+def test_resize_function_backward_is_the_plain_vjp(monkeypatch, mode, align,
+                                                   in_hw, out_hw, scale):
+    """The kernel's autograd Function, with its forward stood in for by
+    the plain version on the CPU: its backward gives F.interpolate's
+    gradient exactly (the same vector-Jacobian product, recomputed)."""
+    monkeypatch.setattr(resize, "resize_cuda", resize.interpolate_plain)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal(
+        (2, *in_hw, 3)).astype(np.float32)).requires_grad_()
+    y = resize._ResizeFunction.apply(x, out_hw, mode, align, scale, -3, -2)
+    g = torch.from_numpy(rng.standard_normal(tuple(y.shape))
+                         .astype(np.float32))
+    (got,) = torch.autograd.grad(y, x, g)
+    (want,) = torch.autograd.grad(resize.interpolate_plain(
+        x, out_hw, mode=mode, align_corners=align, scale=scale), x, g)
+    assert torch.equal(got, want)
+
+
+def test_resize_kernel_route_rejects_before_any_launch():
+    """The kernel route's checks raise before the library is loaded: a
+    dtype it does not take, a mode it has not, a scale that gives another
+    size."""
+    x = torch.zeros(1, 8, 8, 4)
+    with pytest.raises(TypeError):
+        resize.resize_cuda(x.half(), (16, 16), "bilinear", True, None, -3,
+                           -2)
+    with pytest.raises(ValueError):
+        resize.resize_cuda(x, (16, 16), "nearest", False, None, -3, -2)
+    with pytest.raises(ValueError):
+        resize.resize_cuda(x, (5, 5), "bicubic", False, (0.5, 0.5), -3, -2)
+
+
 # 84 -> 100, where F.interpolate's float32 scale picks another row (75),
 # the shipped rN ratios (reensemble -> raw for vitl/vitb 4K tiles, the
 # BEiT family's, and a tile's process -> raw size), and a small grid

@@ -151,8 +151,18 @@ def test_launch_counters_are_zero_on_cpu_twins(model, images):
     assert set(launches) == {
         "launches.clb_pt", "launches.logbinomial_depth",
         "launches.logbinomial_depth_pixel",
-        "launches.clb_logbinomial_depth", "launches.vit_attention"}
+        "launches.clb_logbinomial_depth", "launches.vit_attention",
+        "launches.resize_bilinear", "launches.resize_bicubic"}
     assert set(launches.values()) == {0}
+
+
+@pytest.mark.parametrize("mode", ["m1", "m2"])
+def test_record_carries_the_resize_kernel_counters(model, images, mode):
+    """Each record counts the resize kernel's launches by mode (0 on the
+    CPU, where the plain version runs), whatever the request's mode."""
+    rec, _ = one_record(model, images, mode)
+    for name in ("resize_bilinear", "resize_bicubic"):
+        assert rec["counters"]["launches." + name] == 0
 
 
 def test_depth_bit_identical_with_the_tracer_on_and_off(model, images):
