@@ -5,7 +5,8 @@ the comparison with the reference, and the metrics.
 
 Set-up (`setup_s`, from `t0`): the program's network built on the card by
 its own builder, the harness's seeded weights loaded strictly over its
-own initial ones (`weights.py`), the entry-point object
+own initial ones (`weights.py`, with the rules of the configuration's
+reference module), the entry-point object
 `api.PatchFusion`, the image pool (`images.py`), and one warm request of
 the cell's own mode and chunking, which also builds or loads the
 program's kernels.
@@ -66,6 +67,13 @@ class Record:
     profile: Optional[Dict[str, Any]] = None  # the stretch (traced)
 
 
+def seeded_weights(cell: spec.Cell, wspec: weights.Spec, seed: int,
+                   device) -> Dict[str, torch.Tensor]:
+    """The weights of `wspec` from `seed`, drawn by the rules of the cell's
+    reference module; the program and the reference both load them."""
+    return weights.make(wspec, seed, device, cell.reference, cell.model)
+
+
 def build_program(cell: spec.Cell, seed: int, device):
     """(api.PatchFusion with the seeded weights, the weights' spec)."""
     from patchfusion_tpu_torch.api import PatchFusion
@@ -74,7 +82,8 @@ def build_program(cell: spec.Cell, seed: int, device):
     net, tile_cfg = build_patchfusion(
         cell.model, dtype=DTYPES[cell.config["dtype"]], device=device)
     wspec = weights.spec(net)
-    net.load_state_dict(weights.make(wspec, seed, device), strict=True)
+    net.load_state_dict(seeded_weights(cell, wspec, seed, device),
+                        strict=True)
     return PatchFusion(net.eval(), tile_cfg, cell.model,
                        process_num=cell.traffic["process_num"]), wspec
 
@@ -155,7 +164,8 @@ def reference_depths(cell: spec.Cell, seed: int, wspec, inputs, device
 
     out = {}
     with float32_exact():
-        net = ref_engine.build(cell.model, weights.make(wspec, seed, device),
+        net = ref_engine.build(cell.config,
+                               seeded_weights(cell, wspec, seed, device),
                                device)
         tiles = ref_engine.Tiles(cell.model)
         for precision in ("f32", "fp8"):

@@ -5,7 +5,9 @@ those calls (CUDA events around each, `spans.py`). The bound (copied from
 the program's `tools/_bench_util.attention_bound`) reads q, k and v and writes
 o once in bf16, counts QK^T and PV at the bf16 tensor-core rate and about
 six f32 operations per score, so it is the same whether the einsum path or
-the attention kernel does the work."""
+the attention kernel does the work. BENCHMARK.json lists the cells it is
+read in, those of a DINOv2 backbone: a cell of another backbone makes no
+such call."""
 
 from pfbench.peaks import bound_s
 

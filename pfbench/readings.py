@@ -30,7 +30,7 @@ import time
 
 import torch
 
-from pfbench import check, harness, images, spec, weights
+from pfbench import check, harness, images, spec
 from pfbench.reference import engine as ref_engine
 
 
@@ -82,7 +82,8 @@ def control_readings(cell: spec.Cell, seed: int, device) -> dict:
     for name, per_channel in (("fp8_tensor", False), ("fp8_channel", True)):
         with harness.float32_exact():
             net = control.to_fp8(ref_engine.build(
-                cell.model, weights.make(wspec, seed, device), device),
+                cell.config,
+                harness.seeded_weights(cell, wspec, seed, device), device),
                 per_channel)
             depth = ref_engine.infer(
                 net, tiles, torch.from_numpy(lr).to(device),

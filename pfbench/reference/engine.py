@@ -1,5 +1,7 @@
 """The plain tiled 4K engine of the frozen reference (modes m1 and m2),
-and the builder that loads a weights dict into the reference network.
+and `network` / `build`, which make a configuration's reference network
+from the module that the configuration names (`spec.reference`), with a
+weights dict loaded.
 
 The arithmetic of the program's `engine/inference.py` for one image: one
 coarse pass and G2L over the whole image; the regular pass of P x Q tiles
@@ -16,7 +18,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from pfbench.reference.model import PatchFusionNet
+from pfbench import spec
 from pfbench.reference.ops import (AvgMap, blend_mask, interpolate_nchw,
                                    paste_grid)
 
@@ -62,19 +64,27 @@ class Tiles:
         return sum(len(r) * len(c) for r, c, _, _ in self.passes(mode))
 
 
+def network(config: Dict[str, Any]) -> torch.nn.Module:
+    """The reference network of the configuration file `config`: its
+    reference module's `PatchFusionNet` of `config["model"]`, built on the
+    current default device, in eval mode. Every reference network is built
+    here."""
+    return spec.reference(config).PatchFusionNet(config["model"]).eval()
+
+
 def build(config: Dict[str, Any], weights: Dict[str, torch.Tensor],
-          device) -> PatchFusionNet:
-    """The reference network of `config` on `device` with `weights`
-    (state_dict names; any dtype, copied in as float32) loaded strictly,
-    in eval mode."""
+          device) -> torch.nn.Module:
+    """The reference network of the configuration file `config` on
+    `device` with `weights` (state_dict names; any dtype, copied in as
+    float32) loaded strictly, in eval mode."""
     with torch.device(device):
-        net = PatchFusionNet(config)
+        net = network(config)
     net.load_state_dict(weights, strict=True)
-    return net.eval()
+    return net
 
 
 @torch.no_grad()
-def infer(net: PatchFusionNet, tiles: Tiles, image_lr: torch.Tensor,
+def infer(net: torch.nn.Module, tiles: Tiles, image_lr: torch.Tensor,
           image_hr: torch.Tensor, mode: str, block: int = 8) -> torch.Tensor:
     """image_lr (1, h, w, 3) and image_hr (H, W, 3) float32 in [0, 1], on
     the network's device -> depth on the blended canvas (P h, Q w)."""

@@ -10,6 +10,12 @@ BatchNorm in eval mode. The attribute names are the program's state_dict
 names, so one weights dict loads strictly into both. Only what the
 benchmark's configurations use is here: the `softplus` bin centers, the
 unnormed attractors, `g2l=True`. Nothing here imports the program.
+
+This is the default reference module (`spec.reference`): a configuration
+file without a "reference" key, such as da-vitl's and da-vits's, is run
+against this `PatchFusionNet`. It brings no weight rules of its own
+(`LEAF_RULES`, `computed`): every leaf of the DA networks has a built-in
+rule in weights.py.
 """
 
 from __future__ import annotations

@@ -10,15 +10,31 @@ belongs to one of them is a file of its own, found by its name:
     pfbench/metrics/<metric>.py      the metric's reader (a quantity split
                                      as <metric>.<part> shares it)
 
-so that a later change adds a cell, a configuration, a traffic mix or a
-metric by adding files and entries, and edits none.
+and a configuration's plain reference is a module of its own, named by the
+configuration file's key "reference": a path relative to the root of the
+checkout (a benchmark module lies under pfbench/reference/), or an
+absolute one. Without the key it is pfbench/reference/model.py, the
+reference of the DA-ZoeDepth configurations. The module exports
+
+    PatchFusionNet(model_config)     the reference network, with the
+                                     `coarse` and `tiles` calls that
+                                     reference/engine.py drives
+    LEAF_RULES (optional)            {leaf: (std, mean, exp)}, the draw of
+                                     leaves that weights.py has no rule for
+    computed (optional)              computed(key, shapes, model_config):
+                                     a structural buffer's value, or None
+
+so that a later change adds a cell, a configuration, its reference, a
+traffic mix or a metric by adding files and entries, and edits none.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
+import re
 from pathlib import Path
 from types import ModuleType
 from typing import Any, Dict, List, Optional
@@ -26,6 +42,7 @@ from typing import Any, Dict, List, Optional
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 BENCHMARK = ROOT / "BENCHMARK.json"
+DEFAULT_REFERENCE = "pfbench/reference/model.py"
 
 
 @dataclasses.dataclass
@@ -42,6 +59,11 @@ class Cell:
     def model(self) -> Dict[str, Any]:
         """The model configuration (the program's `model.config` dict)."""
         return self.config["model"]
+
+    @property
+    def reference(self) -> ModuleType:
+        """The configuration's reference module (`reference(config)`)."""
+        return reference(self.config)
 
     def metrics(self, trace: bool) -> List[Dict[str, Any]]:
         return self.per_layer if trace else self.end_to_end
@@ -85,10 +107,31 @@ def reader(metric: str) -> ModuleType:
     path = HERE / "metrics" / f"{metric}.py"
     if not path.is_file() and "." in metric:
         path = HERE / "metrics" / f"{metric.split('.')[0]}.py"
-    mod_name = "pfbench_metric_" + metric.replace(".", "_").replace("-", "_")
-    spec = importlib.util.spec_from_file_location(mod_name, path)
-    if spec is None or not path.is_file():
+    if not path.is_file():
         raise FileNotFoundError(f"no reader {path} for the metric {metric!r}")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    return _load("pfbench_metric_" + metric.replace(".", "_")
+                 .replace("-", "_"), path)
+
+
+def _load(mod_name: str, path: Path) -> ModuleType:
+    """The module of the file `path`, run anew under `mod_name`."""
+    spec_ = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(mod)
     return mod
+
+
+def reference(config: Dict[str, Any]) -> ModuleType:
+    """The reference module that the configuration file `config` names
+    under "reference", or pfbench/reference/model.py; loaded by its path,
+    once a process."""
+    path = Path(config.get("reference", DEFAULT_REFERENCE))
+    return _load_reference((path if path.is_absolute() else ROOT / path)
+                           .resolve())
+
+
+@functools.lru_cache(maxsize=None)
+def _load_reference(path: Path) -> ModuleType:
+    if not path.is_file():
+        raise FileNotFoundError(f"no reference module {path}")
+    return _load("pfbench_reference_" + re.sub(r"\W", "_", str(path)), path)

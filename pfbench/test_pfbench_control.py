@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from pfbench import harness, spec, weights
+from pfbench import harness, spec
 from pfbench.reference import control, engine
 from pfbench.tiny import tiny_cell
 
@@ -33,8 +33,8 @@ class ControlModel:
 
     def __init__(self, cell, seed, wspec, per_channel=False):
         self.net = control.to_fp8(engine.build(
-            cell.model, weights.make(wspec, seed, "cpu"), "cpu"),
-            per_channel)
+            cell.config, harness.seeded_weights(cell, wspec, seed, "cpu"),
+            "cpu"), per_channel)
         self.tiles = engine.Tiles(cell.model)
 
     def infer(self, lr, hr, cai_mode, process_num):

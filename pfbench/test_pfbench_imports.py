@@ -28,7 +28,10 @@ def test_harness_and_program_load_no_jax():
 
 def test_reference_imports_nothing_of_the_program():
     tops = _tops("import pfbench.reference.engine, pfbench.reference.control"
-                 "\nimport pfbench.check, pfbench.weights, pfbench.images")
+                 "\nimport pfbench.check, pfbench.weights, pfbench.images"
+                 "\nimport json\nfrom pfbench import spec\n"
+                 "for w in json.loads(spec.BENCHMARK.read_text())['workloads']:"
+                 "\n    spec.load_cell(w['name']).reference")
     assert not tops.intersection(imports.FORBIDDEN)
     assert "patchfusion_tpu_torch" not in tops
 

@@ -10,7 +10,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from pfbench import harness, peaks, spec, trace
 from pfbench.reference import engine
-from pfbench.tiny import tiny_cell, tiny_model
+from pfbench.tiny import tiny_cell
 
 
 def reader(name):
@@ -115,10 +115,10 @@ def test_idle_share():
 def test_flop_count_on_meta_equals_a_real_run():
     """The mfu reader's count on the meta device is the count of the same
     reference run on real tensors."""
-    cfg = tiny_model()
-    tiles = engine.Tiles(cfg)
-    got = reader("mfu_pct").flops_per_request(cfg, "m2")
-    net = engine.PatchFusionNet(cfg).eval()
+    config = tiny_cell().config
+    tiles = engine.Tiles(config["model"])
+    got = reader("mfu_pct").flops_per_request(config, "m2")
+    net = engine.network(config)
     counter = FlopCounterMode(display=False)
     with counter:
         engine.infer(net, tiles, torch.rand(1, *tiles.process, 3),

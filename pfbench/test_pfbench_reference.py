@@ -8,7 +8,7 @@ import torch
 
 from pfbench import images, weights
 from pfbench.reference import engine
-from pfbench.tiny import tiny_model
+from pfbench.tiny import tiny_cell, tiny_model
 
 SEED = 2 ** 31 + 7
 
@@ -25,7 +25,8 @@ def test_reference_matches_program_f32(mode):
                         assign=True)
     program = PatchFusion(net.eval(), tile_cfg, cfg, process_num=2)
     tiles = engine.Tiles(cfg)
-    ref = engine.build(cfg, weights.make(wspec, SEED, "cpu"), "cpu")
+    ref = engine.build(tiny_cell().config, weights.make(wspec, SEED, "cpu"),
+                       "cpu")
     for lr, hr in images.pool(SEED, 2, tiles.raw, tiles.process, "cpu"):
         depth = program.infer(lr, hr, cai_mode=mode, process_num=2)
         want = engine.infer(ref, tiles, torch.from_numpy(lr),

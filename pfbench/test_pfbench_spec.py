@@ -49,9 +49,15 @@ def test_entries_follow_the_contract():
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25
+    cells = {w["name"] for w in BENCH["workloads"]}
     for m in BENCH["per_layer"]:
         assert set(m) - {"workloads"} == KEYS["per_layer"]
         assert m["moves"] in e2e and UNIT.match(m["unit"])
+        # a listed cell exists and reports the metric this one moves
+        for cell in m.get("workloads", []):
+            assert cell in cells
+            assert m["moves"] in {e["name"] for e in
+                                  spec.load_cell(cell).end_to_end}
     names = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
     assert len(names) == len(set(names)) and all(map(NAME.match, names))
 
