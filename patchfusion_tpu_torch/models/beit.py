@@ -30,6 +30,13 @@ products are exact in f32; the sums are f32), the bias added and the
 softmax taken in f32, the probabilities cast to bf16, P.V summed in f32
 and cast to bf16. These are plain matmuls, outside any kernel, in both
 packages; they need TF32 off (PyTorch's default) to be f32 products.
+
+Tracing (utils/profiling, off by default): each BeitAttention's core, from
+obtaining the (H, N, N) bias through P.V, is the device span
+`pf.beit_attn`, and obtaining the bias inside it `pf.relpos`; the qkv and
+output projections lie outside. Counters: `beit_attn` (calls),
+`beit_attn_seqs` (their summed batch), `relpos_bytes` (bytes of the bias
+produced).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from patchfusion_tpu_torch.models.dinov2 import Mlp
 from patchfusion_tpu_torch.models.dpt import FeatureFusionBlock, conv3x3
 from patchfusion_tpu_torch.ops.activations import Gelu
 from patchfusion_tpu_torch.ops.resize import interpolate_nchw
+from patchfusion_tpu_torch.utils import profiling
 
 BEIT_CONFIGS = {
     # timm beit_large_patch16_384
@@ -123,11 +131,20 @@ class BeitAttention(nn.Module):
                           self.v_bias]).to(x.dtype)
         qkv = (F.linear(x, self.qkv.weight) + bias).reshape(
             b, n, 3, h, hd).permute(2, 0, 3, 1, 4)      # (3, B, H, N, Dh)
-        q = qkv[0] * hd ** -0.5
-        logits = torch.matmul(q.float(), qkv[1].float().transpose(-1, -2))
-        logits = logits + self.rel_bias()[None]
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        o = torch.matmul(probs.float(), qkv[2].float()).to(x.dtype)
+        # the attention core, from the bias through P.V, is the tracer's
+        # pf.beit_attn; obtaining the bias, pf.relpos (utils/profiling)
+        with profiling.span("beit_attn"):
+            with profiling.span("relpos"):
+                rel = self.rel_bias()
+            q = qkv[0] * hd ** -0.5
+            logits = torch.matmul(q.float(),
+                                  qkv[1].float().transpose(-1, -2))
+            logits = logits + rel[None]
+            probs = torch.softmax(logits, dim=-1).to(x.dtype)
+            o = torch.matmul(probs.float(), qkv[2].float()).to(x.dtype)
+        profiling.count("beit_attn")
+        profiling.count("beit_attn_seqs", b)
+        profiling.count("relpos_bytes", rel.numel() * rel.element_size())
         return self.proj(o.transpose(1, 2).reshape(b, n, d))
 
 
