@@ -2,7 +2,9 @@
 (patchfusion_tpu/models/swin.py; reference estimator/models/blocks/
 swin_layers.py): a small Swin stack over whole-image coarse features with a
 learned absolute position embedding sized to each level's num_patches.
-The shifted-window mask is folded into the relative-position bias.
+The shifted-window mask is formed on the logits' device from cached region
+labels (`ops/windows.shifted_window_mask_on`) and joins the logits after
+the relative-position bias, broadcast over the images and heads.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ import torch.nn as nn
 
 from patchfusion_tpu_torch.models.dinov2 import Mlp
 from patchfusion_tpu_torch.ops.windows import (pad_to_multiple,
-                                               shifted_window_mask,
+                                               shifted_window_mask_on,
                                                window_partition,
                                                window_reverse)
+from patchfusion_tpu_torch.utils import profiling
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,11 +40,19 @@ def relative_position_index(window: int) -> np.ndarray:
 
 
 def biased_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     bias: torch.Tensor, scale: float) -> torch.Tensor:
+                     bias: torch.Tensor, scale: float,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, N, H, Dh) attention with an additive f32 bias broadcastable to
     (B, H, N, N): logits, scale and bias in f32, f32 softmax, probabilities
-    in the value dtype (jax.nn.dot_product_attention's order)."""
+    in the value dtype (jax.nn.dot_product_attention's order). mask: an
+    (nW, N, N) f32 mask added after the bias, window w of each image taking
+    mask[w]: B is images x nW, windows in order within an image."""
     logits = torch.einsum("bnhd,bmhd->bhnm", q, k).float() * scale + bias
+    if mask is not None:
+        b, h, n, _ = logits.shape
+        nw = mask.shape[0]
+        logits = (logits.view(b // nw, nw, h, n, n) + mask[:, None]).view(
+            b, h, n, n)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhnm,bmhd->bnhd", probs, v)
 
@@ -62,20 +73,17 @@ class WindowAttention(nn.Module):
             relative_position_index(window)))
 
     def forward(self, x: torch.Tensor,
-                mask: Optional[np.ndarray] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B * nW, N, C); mask: the (nW, N, N) f32 shifted-window mask
+        on x's device, or None."""
         b_, n, c = x.shape
         nh = self.num_heads
         qkv = self.qkv(x).reshape(b_, n, 3, nh, c // nh)
         idx = self.relative_position_index.reshape(-1)
         bias = self.relative_position_bias_table[idx].reshape(n, n, nh)
         bias = bias.permute(2, 0, 1).float()[None]     # (1, nh, N, N)
-        if mask is not None:
-            nw = mask.shape[0]
-            m = torch.from_numpy(mask).to(x.device)
-            bias = (bias[None] + m[None, :, None]).expand(
-                b_ // nw, nw, nh, n, n).reshape(b_, nh, n, n)
         out = biased_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
-                               bias, (c // nh) ** -0.5)
+                               bias, (c // nh) ** -0.5, mask)
         return self.proj(out.reshape(b_, n, c))
 
 
@@ -100,8 +108,9 @@ class SwinBlock(nn.Module):
         x, hp, wp = pad_to_multiple(x, win)
         mask = None
         if self.shift > 0:
+            profiling.count("g2l_shift_blocks")
             x = torch.roll(x, (-self.shift, -self.shift), dims=(1, 2))
-            mask = shifted_window_mask(hp, wp, win, self.shift)
+            mask = shifted_window_mask_on(hp, wp, win, self.shift, x.device)
         wins = window_partition(x, win).reshape(-1, win * win, c)
         wins = self.attn(wins, mask).reshape(-1, win, win, c)
         x = window_reverse(wins, win, hp, wp)

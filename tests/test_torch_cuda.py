@@ -666,6 +666,46 @@ def test_tracer_records_device_times_on_the_card(cuda):
         assert c["h2d_bytes"] == (42 * 56 + 84 * 112) * 3 * 4
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_g2l_forms_its_mask_on_the_card(cuda, dtype):
+    """A warm G2LFusion forward at the largest G2L level of a 392x518 tile
+    (32 channels, 8 heads, depth 2: one shifted block over 1452 windows),
+    under torch.profiler, copies nothing from the host and waits for
+    nothing; its output equals the uploaded-mask formula's
+    (test_torch_g2l_mask.py), which, profiled alike, does copy."""
+    from patchfusion_tpu_torch.models.swin import G2LFusion
+    from tests.test_torch_g2l_mask import randomised, uploaded_g2l
+
+    h, w = 392, 518
+    mod = randomised(G2LFusion(32, 12, 8, 2, h * w), 0).to(cuda, dtype)
+    x = _seeded((1, 32, h, w), dtype, cuda, seed=1)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+
+    def profiled(fn):
+        with torch.no_grad(), torch.profiler.profile(
+                activities=activities) as prof:
+            out = fn(x)
+        torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        return out, kernels, [e.name for e in prof.events()]
+
+    with torch.no_grad():
+        mod(x)      # the first forward builds the label map
+    torch.cuda.synchronize()
+    got, kernels, names = profiled(mod)
+    want, _, old_names = profiled(lambda t: uploaded_g2l(mod, t))
+    assert len(kernels) > 20
+    assert not [n for n in names if "Memcpy" in n or n.startswith(
+        ("cudaMemcpy", "cudaStreamSynchronize"))], sorted(set(names))
+    assert any("Memcpy HtoD" in n for n in old_names)
+    assert any(n == "cudaStreamSynchronize" or n.startswith("cudaMemcpy")
+               for n in old_names)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
 # -- the resize kernel (csrc/resize.cu through ops/resize.interpolate) -----
 #
 # The kernel computes the arithmetic of F.interpolate's NCHW CUDA kernels,
