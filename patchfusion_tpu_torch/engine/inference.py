@@ -29,12 +29,13 @@ inside are NCHW on the model's device.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from patchfusion_tpu_torch.models.patchfusion import PatchFusionNet, TileConfig
+from patchfusion_tpu_torch.models.patchfusion import (
+    PatchFusionNet, TileConfig, TilePass, box_scale, regular_passes)
 from patchfusion_tpu_torch.ops.masks import blend_mask
 from patchfusion_tpu_torch.ops.resize import interpolate, interpolate_nchw
 from patchfusion_tpu_torch.ops.stitch import AvgMap, paste_dynamic, paste_grid
@@ -77,6 +78,48 @@ def _parse_mode(cai_mode: str, group: int, rn_times_process_num: bool
     return "m1", 0
 
 
+class TilePlan(NamedTuple):
+    """A mode's tile plan on an engine's device (`PatchFusionInference.
+    _plan`): `boxes` are the process-space boxes of the regular tiles this
+    engine runs (under a mesh its share, `_share`)."""
+    passes: Tuple[TilePass, ...]
+    origins: np.ndarray  # every regular tile's raw origin, pass after pass
+    blur: torch.Tensor
+    scale: torch.Tensor  # raw -> process box coordinates
+    boxes: torch.Tensor
+    blur_raw: Optional[torch.Tensor]  # rN's raw-resolution blend mask
+
+
+def paste_pass(tile_pass: TilePass, tiles: torch.Tensor, blur: torch.Tensor,
+               canvas_hw: Tuple[int, int], owned=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One regular pass's canvases (num, den): its tiles (n, ph, pw) times
+    the blend mask, and the mask (times `owned` (n,) under a mesh)."""
+    poh, pow_ = tile_pass.process_origins
+    weight = blur if owned is None else blur * owned[:, None, None]
+    return (paste_grid(tiles * blur, poh, pow_, canvas_hw),
+            paste_grid(weight.expand(tiles.shape), poh, pow_, canvas_hw))
+
+
+def stitch_passes(passes: Tuple[TilePass, ...], tiles: torch.Tensor,
+                  blur: torch.Tensor, canvas_hw: Tuple[int, int],
+                  owned: Optional[torch.Tensor] = None,
+                  reduce: Optional[Callable] = None) -> AvgMap:
+    """The regular passes' stitch of their tiles (n_all, ph, pw): each
+    pass's canvases (`paste_pass`), under a mesh summed across the ranks
+    by `reduce`, folded into one running AvgMap."""
+    counts = [len(p.origins) for p in passes]
+    shares = [None] * len(passes) if owned is None else owned.split(counts)
+    canvases = [paste_pass(p, t, blur, canvas_hw, o) for p, t, o in zip(
+        passes, tiles.split(counts), shares)]
+    if owned is not None:
+        canvases = reduce(canvases)
+    avg = None
+    for num, den in canvases:
+        avg = AvgMap.init(num, den) if avg is None else avg.update(num, den)
+    return avg
+
+
 class PatchFusionInference:
     """Tiled inference for a PatchFusionNet (modes m1, m2, rN; reference
     docs/user_infer.md:4-37)."""
@@ -97,6 +140,7 @@ class PatchFusionInference:
         # rN tiles are drawn in groups of this size: process_num in one
         # process, the mesh's size under a mesh (the JAX tile_group)
         self.tile_group = mesh.size if mesh is not None else process_num
+        self._plans: Dict[str, TilePlan] = {}
 
     @property
     def device(self) -> torch.device:
@@ -104,18 +148,31 @@ class PatchFusionInference:
 
     # -- internals -----------------------------------------------------------
 
-    def _boxes_process(self, origins: np.ndarray) -> torch.Tensor:
-        """Tile origins (N, 2) [y, x] -> process-space [x1, y1, x2, y2]."""
-        tc = self.tile_cfg
-        o = np.asarray(origins, np.float32)
-        boxes = np.stack([o[:, 1], o[:, 0], o[:, 1] + tc.patch_raw_shape[1],
-                          o[:, 0] + tc.patch_raw_shape[0]], axis=1)
-        return tc.bbox_to_process(torch.from_numpy(boxes).to(self.device))
+    def _plan(self, mode: str) -> TilePlan:
+        """The tile plan of a parsed mode ("m1", "m2", "r"), built on its
+        first use and kept for the engine's life."""
+        if mode not in self._plans:
+            tc, dev = self.tile_cfg, self.device
+            passes = regular_passes(tc, mode)
+            origins = np.concatenate([p.origins for p in passes])
+            mine = origins if self.mesh is None \
+                else origins[self._share(len(origins))[2]]
+            scale = box_scale(tc.patch_process_shape, tc.image_raw_shape,
+                              device=dev)
+            self._plans[mode] = TilePlan(
+                passes, origins,
+                torch.from_numpy(blend_mask(tc.patch_process_shape)).to(dev),
+                scale, torch.from_numpy(tc.boxes_at(mine)).to(dev) * scale,
+                torch.from_numpy(blend_mask(tc.patch_raw_shape)).to(dev)
+                if mode == "r" else None)
+        return self._plans[mode]
 
     def _tile_batch(self, image_hr: torch.Tensor, origins: np.ndarray,
-                    coarse_ctx) -> torch.Tensor:
-        """Fine + fusion for tiles at `origins` -> depth (N, ph, pw) f32,
-        `process_num` tiles at a time with chunk-local ROIs."""
+                    boxes: Optional[torch.Tensor], coarse_ctx
+                    ) -> torch.Tensor:
+        """Fine + fusion for tiles at `origins` with process-space `boxes`
+        on the device -> depth (N, ph, pw) f32, `process_num` tiles at a
+        time with chunk-local ROIs."""
         tc = self.tile_cfg
         with profiling.span("crop"):
             crops = crop_resize_tiles(image_hr, origins, tc.patch_raw_shape,
@@ -124,26 +181,19 @@ class PatchFusionInference:
         profiling.count("tiles", n)
         chunk = self.process_num or n
         outs = []
-        if not self.fusion:
-            for s in range(0, n, chunk):
-                with profiling.span("chunk"):
-                    profiling.count("chunks")
-                    with profiling.span("fine"):
-                        depth, _ = self.net.fine_forward(crops[s:s + chunk])
-                    outs.append(depth[:, 0].float())
-            return torch.cat(outs)
-        boxes = self._boxes_process(origins)
-        coarse_depth, coarse_feats, g2l_feats = coarse_ctx
         for s in range(0, n, chunk):
             with profiling.span("chunk"):
                 profiling.count("chunks")
-                with profiling.span("roi"):
-                    droi, frois, grois = self.net.coarse_postprocess(
-                        coarse_depth, coarse_feats, g2l_feats,
-                        boxes[s:s + chunk])
-                # pf.fine and pf.fusion open inside infer_tiles
-                depth = self.net.infer_tiles(crops[s:s + chunk], frois,
-                                             grois, droi)
+                if not self.fusion:
+                    with profiling.span("fine"):
+                        depth, _ = self.net.fine_forward(crops[s:s + chunk])
+                else:
+                    with profiling.span("roi"):
+                        droi, frois, grois = self.net.coarse_postprocess(
+                            *coarse_ctx, boxes[s:s + chunk])
+                    # pf.fine and pf.fusion open inside infer_tiles
+                    depth = self.net.infer_tiles(crops[s:s + chunk], frois,
+                                                 grois, droi)
                 outs.append(depth[:, 0].float())
         return torch.cat(outs)
 
@@ -165,54 +215,22 @@ class PatchFusionInference:
         context."""
         tc = self.tile_cfg
         dev = self.device
-        offsets = [((0, 0), (0, 0))]
-        if mode in ("m2", "r"):
-            prh, prw = tc.patch_raw_shape
-            pph, ppw = tc.patch_process_shape
-            offsets += [((0, prw // 2), (0, ppw // 2)),
-                        ((prh // 2, 0), (pph // 2, 0)),
-                        ((prh // 2, prw // 2), (pph // 2, ppw // 2))]
-        pass_grids = [tc.regular_origins(off_raw) for (off_raw, _) in offsets]
-        # pf.stitch: the blend mask's upload here, the canvases and the
-        # average after the tiles, and rN's raw-resolution pastes
+        # pf.stitch: the plan's build on a mode's first request, the
+        # canvases and the average after the tiles, rN's raw-res pastes
         with profiling.span("stitch"):
-            blur = torch.from_numpy(blend_mask(tc.patch_process_shape)).to(
-                dev)
+            plan = self._plan(mode)
 
         # all regular passes' tiles as one stream
-        counts = [len(oh) * len(ow) for (oh, ow) in pass_grids]
-        all_origins = np.concatenate([
-            np.array([[y, x] for y in oh for x in ow], np.int64)
-            for (oh, ow) in pass_grids])
-        tiles_all, owned = self._shared_tiles(image_hr, all_origins,
-                                              coarse_ctx)
+        tiles_all, owned = self._shared_tiles(image_hr, plan, coarse_ctx)
 
         with profiling.span("stitch"):
-            canvases = []
-            start = 0
-            for (_, off_proc), n in zip(offsets, counts):
-                poh, pow_ = tc.process_origins(off_proc)
-                tiles = tiles_all[start:start + n]
-                weight = blur if owned is None else \
-                    blur * owned[start:start + n, None, None]
-                start += n
-                canvases.append((
-                    paste_grid(tiles * blur, poh, pow_,
-                               tc.patch_reensemble_shape),
-                    paste_grid(weight.expand(tiles.shape), poh, pow_,
-                               tc.patch_reensemble_shape)))
-            if owned is not None:
-                canvases = self._sum_canvases(canvases)
-            avg = None
-            for num, den in canvases:
-                avg = AvgMap.init(num, den) if avg is None \
-                    else avg.update(num, den)
+            avg = stitch_passes(plan.passes, tiles_all, plan.blur,
+                                tc.patch_reensemble_shape, owned,
+                                self._sum_canvases)
 
         if mode == "r" and len(rand_origins):
             with profiling.span("stitch"):
                 avg = avg.resize(tc.image_raw_shape)
-                blur_raw = torch.from_numpy(
-                    blend_mask(tc.patch_raw_shape)).to(dev)
                 num = torch.zeros(tc.image_raw_shape, device=dev)
                 den = torch.zeros(tc.image_raw_shape, device=dev)
             if self.mesh is not None:
@@ -221,16 +239,19 @@ class PatchFusionInference:
             group = self.process_num or 1
             for s in range(0, len(rand_origins), group):
                 g = rand_origins[s:s + group]
-                tiles = self._tile_batch(image_hr, g, coarse_ctx)
+                # random tiles differ every request: their boxes go up here
+                boxes = torch.from_numpy(tc.boxes_at(g)).to(dev) \
+                    * plan.scale if self.fusion else None
+                tiles = self._tile_batch(image_hr, g, boxes, coarse_ctx)
                 with profiling.span("stitch"):
                     # the reference resizes tile depth to the raw tile size
                     # with F.interpolate's default mode, nearest (bp:203)
                     tiles = interpolate(tiles[..., None], tc.patch_raw_shape,
                                         mode="nearest")[..., 0]
-                    num += paste_dynamic(tiles * blur_raw, g,
+                    num += paste_dynamic(tiles * plan.blur_raw, g,
                                          tc.image_raw_shape)
-                    den += paste_dynamic(blur_raw.expand(tiles.shape), g,
-                                         tc.image_raw_shape)
+                    den += paste_dynamic(plan.blur_raw.expand(tiles.shape),
+                                         g, tc.image_raw_shape)
             with profiling.span("stitch"):
                 if self.mesh is not None:
                     (num, den), = self._sum_canvases([(num, den)])
@@ -267,17 +288,19 @@ class PatchFusionInference:
         idx = np.minimum(np.arange(first, first + per), n - 1)
         return first, int(np.clip(n - first, 0, per)), idx
 
-    def _shared_tiles(self, image_hr: torch.Tensor, origins: np.ndarray,
+    def _shared_tiles(self, image_hr: torch.Tensor, plan: TilePlan,
                       coarse_ctx):
         """(depth (N, ph, pw), owned): every tile's depth in one process
         (owned None); under a mesh, this rank's tiles at their places in
         the stream and zeros elsewhere, and owned (N,) 1 at this rank's
         tiles and 0 elsewhere."""
         if self.mesh is None:
-            return self._tile_batch(image_hr, origins, coarse_ctx), None
-        n = len(origins)
+            return self._tile_batch(image_hr, plan.origins, plan.boxes,
+                                    coarse_ctx), None
+        n = len(plan.origins)
         first, mine, idx = self._share(n)
-        local = self._tile_batch(image_hr, origins[idx], coarse_ctx)
+        local = self._tile_batch(image_hr, plan.origins[idx], plan.boxes,
+                                 coarse_ctx)
         ph, pw = self.tile_cfg.patch_process_shape
         tiles = local.new_zeros((n, ph, pw))
         tiles[first:first + mine] = local[:mine]
@@ -309,28 +332,13 @@ class PatchFusionInference:
         shard_report): tiles per pass, the padding the split adds, the
         tiles each rank runs, and the coarse pass that every rank
         repeats."""
-        tc = self.tile_cfg
         ndev = self.mesh.size if self.mesh is not None else 1
-        offsets = [(0, 0)]
-        if cai_mode == "m2" or cai_mode.startswith("r"):
-            prh, prw = tc.patch_raw_shape
-            offsets += [(0, prw // 2), (prh // 2, 0), (prh // 2, prw // 2)]
-        counts = []
-        for off in offsets:
-            oh, ow = tc.regular_origins(off)
-            counts.append(len(oh) * len(ow))
+        group = self.tile_group or 1
+        mode, n_rand = _parse_mode(cai_mode, group, self.rn_times_process_num)
+        counts = [len(p.origins) for p in regular_passes(self.tile_cfg, mode)]
         total = sum(counts)
         padded = total + (-total) % ndev
-
-        n_rand = rand_padded = 0
-        if cai_mode.startswith("r"):
-            group = self.tile_group or 1
-            if self.rn_times_process_num:
-                n_rand = int(cai_mode[1:]) * group
-            else:
-                n_rand = (int(cai_mode[1:]) // group) * group
-            per_group = group + (-group) % ndev
-            rand_padded = (n_rand // group) * per_group
+        rand_padded = (n_rand // group) * (group + (-group) % ndev)
 
         work = padded + rand_padded
         useful = total + n_rand

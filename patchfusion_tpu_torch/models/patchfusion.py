@@ -13,7 +13,7 @@ engine/inference.py; the fusion stage's training forward is
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -86,18 +86,55 @@ class TileConfig:
                    ) -> np.ndarray:
         """Raw-coordinate [x1, y1, x2, y2] boxes, float32, row-major over
         (h, w)."""
+        return self.boxes_at([[y, x] for y in origins_h for x in origins_w])
+
+    def boxes_at(self, origins) -> np.ndarray:
+        """Raw-coordinate [x1, y1, x2, y2] boxes, float32, of the tiles at
+        origins (N, 2) [y, x]."""
         ph, pw = self.patch_raw_shape
-        boxes = [[x, y, x + pw, y + ph]
-                 for y in origins_h for x in origins_w]
-        return np.array(boxes, np.float32)
+        o = np.asarray(origins, np.float32).reshape(-1, 2)
+        return np.stack([o[:, 1], o[:, 0], o[:, 1] + pw, o[:, 0] + ph], 1)
 
     def bbox_to_process(self, boxes: torch.Tensor) -> torch.Tensor:
         """Raw -> process ("feature") coordinates (reference
         patchfusion.py:373-378)."""
-        fx = self.patch_process_shape[1] / self.image_raw_shape[1]
-        fy = self.patch_process_shape[0] / self.image_raw_shape[0]
-        return boxes * torch.tensor([fx, fy, fx, fy], dtype=boxes.dtype,
-                                    device=boxes.device)
+        return boxes * box_scale(self.patch_process_shape,
+                                 self.image_raw_shape, boxes.dtype,
+                                 boxes.device)
+
+
+def box_scale(process_shape: Tuple[int, int], raw_shape: Tuple[int, int],
+              dtype: torch.dtype = torch.float32, device=None):
+    """[fx, fy, fx, fy]: raw-coordinate [x1, y1, x2, y2] boxes times it are
+    in process ("feature") coordinates."""
+    fx = process_shape[1] / raw_shape[1]
+    fy = process_shape[0] / raw_shape[0]
+    return torch.tensor([fx, fy, fx, fy], dtype=dtype, device=device)
+
+
+class TilePass(NamedTuple):
+    offset_raw: Tuple[int, int]
+    offset_process: Tuple[int, int]
+    origins: np.ndarray  # (n, 2) raw [y, x], row-major
+    process_origins: Tuple[List[int], List[int]]  # on the reensemble canvas
+
+
+def regular_passes(tc: TileConfig, mode: str) -> Tuple[TilePass, ...]:
+    """The regular passes of a parsed mode, in order, each with its raw and
+    process offsets, its tiles' raw origins and their paste origins: "m1"
+    the grid; "m2" and "r" (rN's regular part) the grid and its three
+    half-tile shifts (reference patchfusion.py:401-453)."""
+    (prh, prw), (pph, ppw) = tc.patch_raw_shape, tc.patch_process_shape
+    offsets = [((0, 0), (0, 0)), ((0, prw // 2), (0, ppw // 2)),
+               ((prh // 2, 0), (pph // 2, 0)),
+               ((prh // 2, prw // 2), (pph // 2, ppw // 2))]
+    passes = []
+    for off_raw, off_proc in offsets[:1 if mode == "m1" else 4]:
+        oh, ow = tc.regular_origins(off_raw)
+        origins = np.array([[y, x] for y in oh for x in ow], np.int64)
+        passes.append(TilePass(off_raw, off_proc, origins,
+                               tc.process_origins(off_proc)))
+    return tuple(passes)
 
 
 class PatchFusionNet(MetricBinsHead):
@@ -244,12 +281,9 @@ class PatchFusionNet(MetricBinsHead):
         reference's 3840x2160. The branches run without grad; G2L, the ROI
         crops and the fusion stage carry it. Returns the per-crop depth
         (B, 1, h, w). The modes are the caller's (train_mode)."""
-        raw_h, raw_w = (2160, 3840) if tile_cfg is None \
-            else tile_cfg.image_raw_shape
-        fx = self.patch_process_shape[1] / raw_w
-        fy = self.patch_process_shape[0] / raw_h
-        boxes_p = bboxs * torch.tensor([fx, fy, fx, fy], dtype=bboxs.dtype,
-                                       device=bboxs.device)
+        raw = (2160, 3840) if tile_cfg is None else tile_cfg.image_raw_shape
+        boxes_p = bboxs * box_scale(self.patch_process_shape, raw,
+                                    bboxs.dtype, bboxs.device)
         with torch.no_grad():
             coarse_depth, coarse_feats = self.coarse_forward(image_lr)
             fine_depth, fine_feats = self.fine_forward(crops_image_hr)

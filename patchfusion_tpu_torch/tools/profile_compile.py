@@ -56,15 +56,11 @@ def cold_build(build_dir: Path) -> dict:
             "library": str(lib)}
 
 
-def mode_tiles(tc, mode: str) -> int:
-    """Tiles per image of m1 / m2 (rN: the 49 of m2 plus N)."""
-    ph, pw = tc.patch_raw_shape
-    offsets = [(0, 0)]
-    if mode != "m1":
-        offsets += [(0, pw // 2), (ph // 2, 0), (ph // 2, pw // 2)]
-    n = sum(len(a) * len(b) for a, b in (tc.regular_origins(o)
-                                          for o in offsets))
-    return n + (int(mode[1:]) if mode.startswith("r") else 0)
+def mode_tiles(engine, mode: str) -> int:
+    """Tiles an image of `mode` runs on `engine`: its regular and random
+    tiles, by the engine's own rules (`shard_report`)."""
+    report = engine.shard_report(mode)
+    return report["regular_tiles"] + report["random_tiles"]
 
 
 def profile(config: dict, modes=("m1", "m2"), process_num: int = 16,
@@ -107,7 +103,7 @@ def profile(config: dict, modes=("m1", "m2"), process_num: int = 16,
         return time.perf_counter() - t
 
     for mode in modes:
-        n = mode_tiles(tc, mode)
+        n = mode_tiles(model.engine(process_num), mode)
         extra = dict(tiles=n, chunk=process_num,
                      chunks=math.ceil(n / process_num))
         rows.append(bu.stage_row(f"{mode} first request", request(mode),

@@ -667,6 +667,58 @@ def test_tracer_records_device_times_on_the_card(cuda):
 
 
 @pytest.mark.cuda
+def test_warm_request_uploads_only_its_images(cuda):
+    """A warm m2 request of the tiny config under torch.profiler, the
+    tracer on for its `pf.` ranges: outside `pf.coarse` and `pf.chunk` it
+    copies two things from the host, the two images, and no copy to or
+    from the host runs inside `pf.stitch`. The blend mask and the regular
+    passes' boxes are the engine's tile plan, uploaded by the first
+    request."""
+    from patchfusion_tpu_torch.api import PatchFusion
+    from patchfusion_tpu_torch.tools._bench_util import tiny_config
+    from patchfusion_tpu_torch.utils import profiling
+
+    model = PatchFusion.from_config(tiny_config(), device="cuda",
+                                    dtype=torch.bfloat16, seed=0)
+    lr, hr = _tiny_images()
+    first = model.infer(lr, hr, cai_mode="m2", process_num=2)
+    profiling.enable()
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            warm = model.infer(lr, hr, cai_mode="m2", process_num=2)
+    finally:
+        profiling.disable()
+        profiling.clear()
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+
+    def ranges(name):
+        return [e.time_range for e in cpu if e.name == name]
+
+    def inside(e, rs):
+        return any(r.start <= e.time_range.start
+                   and e.time_range.end <= r.end for r in rs)
+
+    # each aten op of the request with the device copies it launched (a
+    # runtime event can share a copy's correlation id and list it too)
+    copies = [(e, k.name) for e in cpu if e.name.startswith("aten::")
+              and inside(e, ranges("pf.request"))
+              for k in e.kernels if "Memcpy" in k.name]
+    branches = ranges("pf.coarse") + ranges("pf.chunk")
+    assert len(ranges("pf.stitch")) == 2 and len(branches) == 6
+    uploads = [e for e, name in copies
+               if "HtoD" in name and not inside(e, branches)]
+    assert len(uploads) == 2 and all(inside(e, ranges("pf.h2d"))
+                                     for e in uploads), \
+        [(e.name, e.time_range) for e in uploads]
+    assert not [name for e, name in copies
+                if "DtoD" not in name and inside(e, ranges("pf.stitch"))]
+    assert np.array_equal(first, warm)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_g2l_forms_its_mask_on_the_card(cuda, dtype):
     """A warm G2LFusion forward at the largest G2L level of a 392x518 tile

@@ -7,6 +7,7 @@ config with the same weights, images and random tile origins; float32, at
 import inspect
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -17,11 +18,19 @@ import chip_smoke
 from patchfusion_tpu.engine.inference import PatchFusionInference
 from patchfusion_tpu.models.patchfusion import TileConfig
 from patchfusion_tpu_torch.api import BaselinePretrain, PatchFusion
+from patchfusion_tpu_torch.engine import inference
+from patchfusion_tpu_torch.engine.inference import PatchFusionInference \
+    as PortEngine
 from patchfusion_tpu_torch.engine.inference import _parse_mode
+from patchfusion_tpu_torch.models import patchfusion as port_pf
 from patchfusion_tpu_torch.models.builder import (build_patchfusion,
                                                   build_zoedepth_branch)
+from patchfusion_tpu_torch.ops.masks import blend_mask
+from patchfusion_tpu_torch.parallel import dist
 from patchfusion_tpu_torch.tools import infer as infer_cli
+from patchfusion_tpu_torch.tools import profile_compile
 from patchfusion_tpu_torch.tools import test as test_cli
+from patchfusion_tpu_torch.utils import profiling
 
 from .torch_parity import port_net, rel_err, tiny_jax
 
@@ -204,5 +213,113 @@ def test_import_pulls_in_no_jax_or_triton():
 ])
 def test_mode_parsing_quirks(cai_mode, times, want):
     """The random-tile count rules of
-    patchfusion_tpu/engine/inference.py:472-494."""
+    patchfusion_tpu/engine/inference.py:472-494, the port's one copy: the
+    engine's requests, its shard_report and profile_compile read it."""
     assert _parse_mode(cai_mode, PROCESS_NUM, times) == want
+    eng = PortEngine(None, port_pf.TileConfig((84, 112), (2, 2), (42, 56)),
+                     process_num=PROCESS_NUM, rn_times_process_num=times)
+    assert eng.shard_report(cai_mode)["random_tiles"] == want[1]
+
+
+def todays_plan(tc, mode):
+    """The engine's tile plan as it computed it on every request before it
+    kept one (a copy of those formulas): the passes' (raw offset, process
+    offset), their counts, every regular tile's origin, the tiles' process
+    boxes and each pass's paste origins."""
+    offsets = [((0, 0), (0, 0))]
+    if mode in ("m2", "r"):
+        prh, prw = tc.patch_raw_shape
+        pph, ppw = tc.patch_process_shape
+        offsets += [((0, prw // 2), (0, ppw // 2)),
+                    ((prh // 2, 0), (pph // 2, 0)),
+                    ((prh // 2, prw // 2), (pph // 2, ppw // 2))]
+    grids = [tc.regular_origins(off_raw) for off_raw, _ in offsets]
+    origins = np.concatenate([
+        np.array([[y, x] for y in oh for x in ow], np.int64)
+        for oh, ow in grids])
+    o = origins.astype(np.float32)
+    boxes = np.stack([o[:, 1], o[:, 0], o[:, 1] + tc.patch_raw_shape[1],
+                      o[:, 0] + tc.patch_raw_shape[0]], axis=1)
+    fx = tc.patch_process_shape[1] / tc.image_raw_shape[1]
+    fy = tc.patch_process_shape[0] / tc.image_raw_shape[0]
+    boxes = torch.from_numpy(boxes) * torch.tensor([fx, fy, fx, fy])
+    return (offsets, [len(oh) * len(ow) for oh, ow in grids], origins,
+            boxes, [tc.process_origins(off) for _, off in offsets])
+
+
+@pytest.mark.parametrize("mesh", [None, (3, 1)])
+@pytest.mark.parametrize("cai_mode", ["m1", "m2", "r8"])
+@pytest.mark.parametrize("geometry", [
+    ((84, 112), (2, 2), (42, 56)),
+    ((2160, 3840), (4, 4), (392, 518)),
+    ((2160, 3840), (4, 4), (384, 512))])
+def test_tile_plan_is_todays_formulas(geometry, cai_mode, mesh):
+    """An engine's kept plan holds what it built per request before: the
+    same passes, origins, counts, paste origins and process boxes (under a
+    mesh, the boxes of this rank's share), and the blend masks."""
+    tc = port_pf.TileConfig(*geometry)
+    net = types.SimpleNamespace(device=torch.device("cpu"))
+    eng = PortEngine(net, tc, process_num=4,
+                     mesh=None if mesh is None else dist.PatchMesh(*mesh))
+    mode, _ = _parse_mode(cai_mode, 4, False)
+    plan = eng._plan(mode)
+    offsets, counts, origins, boxes, paste = todays_plan(tc, mode)
+    assert [(p.offset_raw, p.offset_process) for p in plan.passes] == offsets
+    assert [p.process_origins for p in plan.passes] == paste
+    assert [len(p.origins) for p in plan.passes] == counts
+    assert plan.origins.dtype == np.int64
+    np.testing.assert_array_equal(plan.origins, origins)
+    if mesh is not None:
+        boxes = boxes[eng._share(len(origins))[2]]
+    assert torch.equal(plan.boxes, boxes)
+    assert torch.equal(plan.blur,
+                       torch.from_numpy(blend_mask(tc.patch_process_shape)))
+    if mode == "r":
+        assert torch.equal(plan.blur_raw,
+                           torch.from_numpy(blend_mask(tc.patch_raw_shape)))
+    else:
+        assert plan.blur_raw is None
+    assert eng._plan(mode) is plan
+
+
+@pytest.mark.parametrize("cai_mode", ["m1", "m2", "r8", "r10"])
+def test_profile_compile_counts_the_tiles_the_engine_runs(engines, images,
+                                                          cai_mode):
+    """profile_compile's tile count of a mode is the number of tiles a
+    request runs, as the tracer counts them, at process_num 4: r10 runs
+    (10 // 4) * 4 = 8 random tiles, not 10."""
+    port = engines[1]
+    lr, hr = images
+    profiling.enable()
+    try:
+        port.infer(lr, hr, cai_mode=cai_mode, process_num=4,
+                   rng=np.random.default_rng(2))
+        (rec,) = profiling.records()
+    finally:
+        profiling.disable()
+        profiling.clear()
+    assert profile_compile.mode_tiles(port.engine(4), cai_mode) \
+        == rec["counters"]["tiles"]
+
+
+@pytest.mark.parametrize("cai_mode", ["m1", "m2", "r4"])
+def test_engine_builds_a_plan_once(engines, images, cai_mode,
+                                   monkeypatch):
+    """Two requests of a mode on one engine build its plan once, and their
+    depths are equal bit for bit."""
+    port = engines[1]
+    lr, hr = images
+    builds = []
+
+    def counted(tc, mode):
+        builds.append(mode)
+        return port_pf.regular_passes(tc, mode)
+
+    monkeypatch.setattr(inference, "regular_passes", counted)
+    eng = PortEngine(port.net, port.tile_cfg, process_num=PROCESS_NUM)
+    rand = eng.random_origins(4, np.random.default_rng(5)) \
+        if cai_mode == "r4" else None
+    a, b = (eng.infer(lr, hr, cai_mode=cai_mode, rand_origins=rand)
+            for _ in range(2))
+    assert builds == [_parse_mode(cai_mode, PROCESS_NUM, False)[0]]
+    assert torch.equal(a, b)

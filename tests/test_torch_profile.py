@@ -20,8 +20,10 @@ from patchfusion_tpu.models.patchfusion import PatchFusionNet as JaxNet
 from patchfusion_tpu.models.patchfusion import TileConfig as JaxTileConfig
 from patchfusion_tpu.ops import masks as jmasks
 from patchfusion_tpu.ops import stitch as jstitch
+from patchfusion_tpu_torch.engine.inference import stitch_passes
 from patchfusion_tpu_torch.models.dinov2 import build_dinovit
-from patchfusion_tpu_torch.models.patchfusion import TileConfig
+from patchfusion_tpu_torch.models.patchfusion import (TileConfig,
+                                                      regular_passes)
 from patchfusion_tpu_torch.ops import fused_head
 from patchfusion_tpu_torch.tools import (_bench_util, clb_depth_split,
                                          profile_attn, profile_clb,
@@ -370,28 +372,31 @@ def test_profile_infer_stages_match_jax(nets):
 
 
 def test_profile_stitch_chain_matches_jax():
-    """The 4-pass AvgMap canvas of profile_stitch against the JAX tool's
-    chain over the JAX package's paste_grid, AvgMap and blend_mask."""
+    """The engine's stitch of the m2 plan, which profile_stitch times,
+    against the JAX tool's chain over the JAX package's paste_grid, AvgMap
+    and blend_mask."""
     kw = dict(image_raw_shape=(84, 112), patch_split_num=(2, 2),
               patch_process_shape=TINY_SHAPE)
     tc, jtc = TileConfig(**kw), JaxTileConfig(**kw)
-    offsets, grids, counts = profile_stitch.pass_plan(tc)
+    passes = regular_passes(tc, "m2")
     tiles = np.random.default_rng(6).standard_normal(
-        (sum(counts), *TINY_SHAPE)).astype(np.float32)
+        (sum(len(p.origins) for p in passes), *TINY_SHAPE)).astype(
+            np.float32)
     blur = jnp.asarray(jmasks.blend_mask(jtc.patch_process_shape))
     avg, start = None, 0
-    for (_, off_proc), n in zip(offsets, counts):
-        poh, pow_ = jtc.process_origins(off_proc)
-        t = tiles[start:start + n]
-        start += n
+    for p in passes:
+        poh, pow_ = jtc.process_origins(p.offset_process)
+        t = tiles[start:start + len(p.origins)]
+        start += len(p.origins)
         num = jstitch.paste_grid(t * blur, poh, pow_,
                                  jtc.patch_reensemble_shape)
         den = jstitch.paste_grid(jnp.broadcast_to(blur, t.shape), poh, pow_,
                                  jtc.patch_reensemble_shape)
         avg = jstitch.AvgMap.init(num, den) if avg is None \
             else avg.update(num, den)
-    got = profile_stitch.stitch_chain(
-        tc, torch.from_numpy(tiles),
-        torch.from_numpy(jmasks.blend_mask(tc.patch_process_shape)))
+    got = stitch_passes(
+        passes, torch.from_numpy(tiles),
+        torch.from_numpy(jmasks.blend_mask(tc.patch_process_shape)),
+        tc.patch_reensemble_shape).average
     assert got.shape == (84, 112)
     assert rel_err(got.numpy(), avg.average) <= 1e-5
