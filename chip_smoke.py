@@ -22,7 +22,8 @@
    phase split at the DA and BEiT head shapes); the
    attention kernel at the vitl fine and coarse shapes (B = 4 and 1,
    N = 1037, H = 16, Dh = 64), at the vits and vitb fine shapes (B = 4,
-   H = 6 and 12) and at the vitmicro width (Dh = 32) on
+   H = 6 and 12), at the vitmicro width (Dh = 32) and at the benchmark's
+   batches (B = 16 at H = 16 and 6, B = 49 at H = 6) on
    strided qkv views, in all three roundings, each closer to its own
    rounding's twin than to the other two on inputs where the roundings
    part. Each function is timed four ways (_bench_util.timings): ms, one
@@ -42,12 +43,13 @@
 4. Builds DA-vitl PatchFusion at full width from
    configs/patchfusion_depthanything/depthanything_vitl_patchfusion_u4k.py
    in bf16 with seeded random weights, answers three m1 requests and one m2
-   request on seeded 2160x3840 images (the einsum attention), and checks
-   every depth map and each kernel's launches per image.
-5. The same model with PF_ATTN_IMPL=pallas (the attention kernel in all 24
-   blocks of both branches): three m1 requests on the same images, 120
-   attention launches per image, depth within 3e-2 of max of step 4's, and
-   one m2 request (336 launches).
+   request on seeded 2160x3840 images on the default route (the attention
+   kernel in all 24 blocks of both branches: 120 launches per m1 image,
+   336 per m2), and checks every depth map and each kernel's launches per
+   image.
+5. The same model with PF_ATTN_IMPL=einsum: three m1 requests on the same
+   images, no attention launch, depth within 3e-2 of max of step 4's, and
+   one m2 request.
 6. ConditionalLogBinomial.depth_fused (one clb_logbinomial_depth launch)
    on the PF head of that model, on the head's own inputs of one m1 chunk,
    against the head's two-kernel output and against the plain twin.
@@ -80,7 +82,9 @@
    with --amp at the recipe's batch of 4 over 4 synthetic 4K U4K scenes
    (2 epochs of 5 steps, m1 validation, a checkpoint per epoch): finite
    losses, trainable weights and BN statistics moved, frozen branches
-   bit-identical, clb_pt and logbinomial_depth launched 3 times a step;
+   bit-identical, clb_pt and logbinomial_depth launched 3 times a step
+   and the attention kernel 48 (the frozen branches' 24 + 24 blocks run
+   without a gradient, so the default route launches it);
    images/s over the epochs' wall time, the warm step's median time, the
    loader's waits and peak memory; (d) save at step 3 and resume into a
    fresh model (restore_train_state, as --resume does): the same weights
@@ -172,16 +176,17 @@
    process's; walls, step times on CUDA events and peaks per rank. Two
    ranks on one card show the collectives, not a speed-up.
 14. DA-vits and DA-vitb at full width (phase `cores`; their published
-   configs, bf16, seeded weights, process_num 4): one m1 request with the
-   einsum attention and one with PF_ATTN_IMPL=pallas (the attention
+   configs, bf16, seeded weights, process_num 4): one m1 request with
+   PF_ATTN_IMPL=einsum and one on the default route (the attention
    kernel at 6 and 12 heads), within PATH_TOL of each other, and within
    CORE_F32_TOL of max of the same seeded model's m1 in float32 on the
    card; one m2; 9 / 27 launches of each head kernel per m1 / m2 request
-   and 12 + 4 x 12 attention launches per pallas m1.
+   and 12 + 4 x 12 attention launches per default-route m1.
 15. The port's benchmark (phase `bench`): `python -m
    patchfusion_tpu_torch.bench` in a fresh process per run, as a user runs
    it (BENCH_* in its environment): DA-vitl m2 bf16 at bench.py's
-   defaults with the einsum attention and with PF_ATTN_IMPL=pallas, then
+   defaults with the default attention (the kernel) and with
+   PF_ATTN_IMPL=einsum, then
    at BENCH_ITERS=3 vitl m1 and r16, vits m1 and m2 (one whole pass),
    vitb m2, beit m2 (bf16) and vits m2 in f32; then BENCH_MESH=patch (the
    tile split over 8 gloo ranks on the CPU against one process, within
@@ -262,7 +267,7 @@ ATTN_TOL = 1e-2
 # per-pixel arithmetic (the tiled depth kernel stages and sums as the fused
 # epilogue does, to float rounding), relative to max |depth|
 FUSED_TOL = 1e-4
-PATH_TOL = 3e-2   # pallas vs einsum attention path, relative to max |depth|
+PATH_TOL = 3e-2   # kernel vs einsum attention path, relative to max |depth|
 TINY_TOL = 3e-2   # bf16 card vs f32 CPU, relative to max |depth|
 SNAPSHOT_TOL = 1e-6  # from_pretrained vs the seeded model, rel. to max
 # one BEiT-L block (B = 4, 769 tokens, width 1024, 16 heads) in bf16 against
@@ -658,10 +663,13 @@ def _fused_split(results):
 
 
 # (B, N, H, Dh): the vitl fine and coarse passes, the vits and vitb fine
-# passes (6 and 12 heads of 64), and the vitmicro width
-# the tiny config runs (42x56 tiles: 12 patches and the class token)
+# passes (6 and 12 heads of 64) at process_num 4, the vitmicro width
+# the tiny config runs (42x56 tiles: 12 patches and the class token), and
+# the benchmark's batches: vitl and vits fine chunks of 16 tiles, vits m2's
+# one whole pass of 49
 ATTN_SHAPES = [(4, 1037, 16, 64), (1, 1037, 16, 64), (4, 1037, 6, 64),
-               (4, 1037, 12, 64), (2, 13, 2, 32)]
+               (4, 1037, 12, 64), (2, 13, 2, 32), (16, 1037, 16, 64),
+               (16, 1037, 6, 64), (49, 1037, 6, 64)]
 
 
 def _attention_wrappers():
@@ -1048,47 +1056,54 @@ def _want(n_tiles, vit_blocks=(0, 0)):
             "vit_attention": vit_blocks[0] + chunks * vit_blocks[1]}
 
 
+def _vit_blocks(model):
+    """The ViT depths of the coarse and fine branches."""
+    return [len(branch.core.core.pretrained.blocks)
+            for branch in (model.net.coarse_branch, model.net.fine_branch)]
+
+
 def phase_full_width(model):
-    """DA-vitl at 2160x3840 in bf16, einsum attention: three m1, one m2.
-    Returns the launches, the m1 depths and the m2 request's ms."""
+    """DA-vitl at 2160x3840 in bf16 on the default route (every bf16
+    DINOv2 attention of both branches through the attention kernel): three
+    m1, one m2. Returns the launches, the m1 depths and the m2 request's
+    ms."""
     import torch
 
     n_tiles = _tiles(model.tile_cfg)
+    blocks = _vit_blocks(model)
     say(f"tiles per image: {n_tiles}")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with attn_impl("einsum"):
-        m1 = [_request(model, "m1", i, _want(n_tiles["m1"]))
-              for i in range(3)]
-        m2, _ = _request(model, "m2", 3, _want(n_tiles["m2"]))
+    m1 = [_request(model, "m1", i, _want(n_tiles["m1"], blocks))
+          for i in range(3)]
+    m2, _ = _request(model, "m2", 3, _want(n_tiles["m2"], blocks))
     launches = counts()
     peak = torch.cuda.max_memory_allocated()
     say(f"m1 latency: cold {m1[0][0]:.1f} ms, warm {m1[1][0]:.1f} / "
         f"{m1[2][0]:.1f} ms; m2 latency {m2:.1f} ms; peak allocated "
-        f"{peak / 2**30:.2f} GiB")
+        f"{peak / 2**30:.2f} GiB; "
+        f"{_want(n_tiles['m1'], blocks)['vit_attention']} attention "
+        f"launches per m1 image")
     return launches, [d for _, d in m1], m2
 
 
-def phase_pallas_path(model, einsum_depths):
-    """The same model and images with PF_ATTN_IMPL=pallas: every bf16
-    DINOv2 attention of both branches through the attention kernel."""
+def phase_einsum_path(model, default_depths):
+    """The same model and images with PF_ATTN_IMPL=einsum: no attention
+    launch, depth within PATH_TOL of max of the default route's."""
     n_tiles = _tiles(model.tile_cfg)
-    blocks = [len(branch.core.core.pretrained.blocks)
-              for branch in (model.net.coarse_branch, model.net.fine_branch)]
-    want = _want(n_tiles["m1"], blocks)
     reset_counts()
-    with attn_impl("pallas"):
-        runs = [_request(model, "m1", i, want) for i in range(3)]
-        m2, _ = _request(model, "m2", 3, _want(n_tiles["m2"], blocks))
+    with attn_impl("einsum"):
+        runs = [_request(model, "m1", i, _want(n_tiles["m1"]))
+                for i in range(3)]
+        m2, _ = _request(model, "m2", 3, _want(n_tiles["m2"]))
     launches = counts()
-    for (ms, depth), ref in zip(runs, einsum_depths):
+    for (ms, depth), ref in zip(runs, default_depths):
         rel = float(np.abs(depth - ref).max() / np.abs(ref).max())
-        say(f"pallas vs einsum attention m1: max|diff|/max|einsum| = "
+        say(f"einsum vs kernel attention m1: max|diff|/max|kernel| = "
             f"{rel:.3g} (tolerance {PATH_TOL})")
-        check(rel <= PATH_TOL, f"pallas path differs by {rel:.3g}")
-    say(f"m1 latency with PF_ATTN_IMPL=pallas: first {runs[0][0]:.1f} ms, "
-        f"then {runs[1][0]:.1f} / {runs[2][0]:.1f} ms; m2 {m2:.1f} ms; "
-        f"{want['vit_attention']} attention launches per m1 image")
+        check(rel <= PATH_TOL, f"einsum path differs by {rel:.3g}")
+    say(f"m1 latency with PF_ATTN_IMPL=einsum: first {runs[0][0]:.1f} ms, "
+        f"then {runs[1][0]:.1f} / {runs[2][0]:.1f} ms; m2 {m2:.1f} ms")
     return launches
 
 
@@ -1589,7 +1604,7 @@ def _train_cli(root: Path, train: str, val: str):
             *_train_options(root, train, val, 2)]
     reset_counts()
     t = time.perf_counter()
-    with attn_impl("einsum"), _spy_training(per_step, created):
+    with _spy_training(per_step, created):
         trainer = train_cli.main(argv)
     wall = time.perf_counter() - t
     state, start = trainer.state, created[0]
@@ -1600,7 +1615,7 @@ def _train_cli(root: Path, train: str, val: str):
           f"train: losses {losses}")
     for i, n in enumerate(per_step):
         check(n["clb_pt"] == 3 and n["logbinomial_depth"] == 3
-              and n["vit_attention"] == 0
+              and n["vit_attention"] == 2 * VIT_BLOCKS["vitl"]
               and n["clb_logbinomial_depth"] == 0,
               f"train step {i}: launches {n}")
     moved = sum(not torch_equal(p, start["trainable"][n])
@@ -3167,9 +3182,10 @@ CORE_WIDTHS = {"vits": (384, 6), "vitb": (768, 12)}
 
 def phase_cores() -> dict:
     """DA-vits and DA-vitb from their published configs at full width,
-    seeded, process_num 4: in bf16 one m1 with the einsum attention, one
-    with PF_ATTN_IMPL=pallas and one m2; the same seeded weights in f32
-    for one m1 (no kernel launches: the fused head is bf16's)."""
+    seeded, process_num 4: in bf16 one m1 with PF_ATTN_IMPL=einsum, one
+    on the default route (the attention kernel) and one m2; the same
+    seeded weights in f32 for one m1 (no kernel launches: the fused head
+    is bf16's)."""
     import torch
     from patchfusion_tpu_torch.api import PatchFusion
 
@@ -3189,9 +3205,8 @@ def phase_cores() -> dict:
         with attn_impl("einsum"):
             ms_e, einsum = _request(model, "m1", 0, _want(n_tiles["m1"]))
             ms_m2, _ = _request(model, "m2", 3, _want(n_tiles["m2"]))
-        with attn_impl("pallas"):
-            want = _want(n_tiles["m1"], blocks)
-            ms_p, pallas = _request(model, "m1", 0, want)
+        want = _want(n_tiles["m1"], blocks)
+        ms_p, kernel = _request(model, "m1", 0, want)
         peak = torch.cuda.max_memory_allocated() / 2**30
         del model
         torch.cuda.empty_cache()
@@ -3200,22 +3215,22 @@ def phase_cores() -> dict:
         del f32
         torch.cuda.empty_cache()
         scale = float(np.abs(exact).max())
-        path = float(np.abs(pallas - einsum).max()) / float(
+        path = float(np.abs(kernel - einsum).max()) / float(
             np.abs(einsum).max())
         bf16 = float(np.abs(einsum - exact).max()) / scale
-        say(f"{core}: pallas vs einsum m1 {path:.3g} (tolerance "
+        say(f"{core}: kernel vs einsum m1 {path:.3g} (tolerance "
             f"{PATH_TOL}); bf16 vs f32 m1 {bf16:.3g} (tolerance "
-            f"{CORE_F32_TOL}); m1 einsum {ms_e:.1f} ms, pallas {ms_p:.1f} "
+            f"{CORE_F32_TOL}); m1 einsum {ms_e:.1f} ms, kernel {ms_p:.1f} "
             f"ms, f32 {ms_f:.1f} ms; m2 {ms_m2:.1f} ms; bf16 peak "
             f"{peak:.2f} GiB")
-        check(path <= PATH_TOL, f"{core}: pallas path differs by {path:.3g}")
+        check(path <= PATH_TOL, f"{core}: kernel path differs by {path:.3g}")
         check(bf16 <= CORE_F32_TOL, f"{core}: bf16 vs f32 {bf16:.3g}")
-        out[core] = {"pallas_vs_einsum": path, "bf16_vs_f32": bf16,
-                     "m1_einsum_ms": ms_e, "m1_pallas_ms": ms_p,
+        out[core] = {"kernel_vs_einsum": path, "bf16_vs_f32": bf16,
+                     "m1_einsum_ms": ms_e, "m1_kernel_ms": ms_p,
                      "m1_f32_ms": ms_f, "m2_ms": ms_m2, "peak_gib": peak,
                      "launches": {
                          "m1": _want(n_tiles["m1"]),
-                         "m2": _want(n_tiles["m2"]), "m1_pallas": want}}
+                         "m2": _want(n_tiles["m2"]), "m1_kernel": want}}
     out["seconds"] = time.perf_counter() - t0
     say(f"phase cores: {out['seconds']:.1f} s")
     return out
@@ -3228,7 +3243,7 @@ def phase_cores() -> dict:
 # label -> (BENCH_* environment, PF_ATTN_IMPL or None for the default)
 BENCH_RUNS = {
     "vitl m2 bf16": ({}, None),
-    "vitl m2 bf16 pallas": ({}, "pallas"),
+    "vitl m2 bf16 einsum": ({}, "einsum"),
     "vitl m1 bf16": ({"BENCH_MODE": "m1", "BENCH_ITERS": "3"}, None),
     "vitl r16 bf16": ({"BENCH_MODE": "r16", "BENCH_ITERS": "3"}, None),
     "vits m1 bf16": ({"BENCH_CORE": "vits", "BENCH_MODE": "m1",
@@ -3251,13 +3266,13 @@ RESIZES_PER_PASS = {"vitl": (13, 31, 1), "vitb": (13, 31, 1),
                     "vits": (13, 31, 1), "beit": (13, 26, 0)}
 
 
-def _bench_want(args: dict, pallas: bool) -> dict:
+def _bench_want(args: dict, kernel: bool) -> dict:
     """Launches per request of a bench run (args: bench.bench_env): each
     head kernel once for the coarse head and twice per chunk (fine and PF
     heads), where a chunk is `process_num` regular tiles (all of them in
     one pass for None) or one group of rN's random tiles; the attention
     kernel once per block of the coarse pass and of each chunk's fine
-    pass with PF_ATTN_IMPL=pallas; nothing in float32. The resize kernel
+    pass unless PF_ATTN_IMPL=einsum; nothing in float32. The resize kernel
     (RESIZES_PER_PASS) for the coarse pass and each chunk, in either
     dtype, plus one bilinear for each batch of tiles (its crops: the
     regular grid, then each group of rN's random tiles); in float32 two
@@ -3273,7 +3288,7 @@ def _bench_want(args: dict, pallas: bool) -> dict:
         batches += int(mode[1:]) // group
     bf16 = args["dtype"] == "bf16"
     heads = (1 + 2 * chunks) if bf16 else 0
-    blocks = VIT_BLOCKS[args["core"]] if bf16 and pallas else 0
+    blocks = VIT_BLOCKS[args["core"]] if bf16 and kernel else 0
     coarse, chunk, bicubic = RESIZES_PER_PASS[args["core"]]
     bilinear = coarse + batches + chunk * chunks \
         + int(mode.startswith("r")) + (0 if bf16 else 2 * (1 + 2 * chunks))
@@ -3332,7 +3347,7 @@ def phase_bench() -> dict:
                 got = json.loads(text.split(": ", 1)[1])
             elif text.startswith("peak allocated: "):
                 peak = float(text.split(": ", 1)[1].split()[0])
-        want = _bench_want(args, impl == "pallas")
+        want = _bench_want(args, impl != "einsum")
         check(got == want, f"bench {label}: launches per request {got}, "
               f"expected {want}")
         say(f"bench {label} peak: {peak} GiB; {secs:.1f} s in its process")
@@ -3402,10 +3417,9 @@ def main(argv) -> int:
         resize_rows = timed("resize", phase_resize_child,
                             Path(tmp) / "resize_rows.json")
     model = build_vitl()
-    main_launches, einsum_depths, m2_ms = timed("full_width",
-                                                phase_full_width, model)
-    pallas_launches = timed("pallas_path", phase_pallas_path, model,
-                            einsum_depths)
+    main_launches, default_depths, m2_ms = timed("full_width",
+                                                 phase_full_width, model)
+    timed("einsum_path", phase_einsum_path, model, default_depths)
     fused_launches = timed("depth_fused", phase_depth_fused, model)
     ev = timed("eval", phase_eval, model)
     del model
@@ -3422,7 +3436,7 @@ def main(argv) -> int:
     say("phase seconds: " + json.dumps(seconds))
     launches = {"clb_pt": main_launches["clb_pt"],
                 "logbinomial_depth": main_launches["logbinomial_depth"],
-                "vit_attention": pallas_launches["vit_attention"],
+                "vit_attention": main_launches["vit_attention"],
                 "clb_logbinomial_depth":
                     fused_launches["clb_logbinomial_depth"]}
     for name, n in launches.items():

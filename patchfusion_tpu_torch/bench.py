@@ -12,8 +12,8 @@ Env overrides, as bench.py's: BENCH_CORE (vitl|vitb|vits|beit; beit
 selects the ZoeDepth / MiDaS DPT_BEiT_L_384 variant at 384x512),
 BENCH_MODE (m1|m2|rN), BENCH_DTYPE (bf16|f32), BENCH_ITERS,
 BENCH_PROCESS_NUM (tiles per chunk; 0 is one whole pass; default 16, or 0
-for vits). PF_ATTN_IMPL=pallas routes the bf16 DINOv2 attention through
-the attention kernel.
+for vits). The bf16 DINOv2 attention runs on the attention kernel;
+PF_ATTN_IMPL=einsum routes it through the einsum path instead.
 
 The model is the published config of the core (`bench_config`) with
 seeded random weights (`PatchFusion.from_config(seed=0)`); the input is

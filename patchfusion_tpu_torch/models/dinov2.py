@@ -18,7 +18,8 @@ import torch.nn as nn
 
 from patchfusion_tpu_torch.ops.activations import gelu
 from patchfusion_tpu_torch.ops.resize import interpolate
-from patchfusion_tpu_torch.ops.vit_attention import (vit_attention,
+from patchfusion_tpu_torch.ops.vit_attention import (carries_grad,
+                                                     vit_attention,
                                                      vit_attention_plain)
 from patchfusion_tpu_torch.utils import profiling
 
@@ -38,19 +39,25 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     package's fused_attention (models/dinov2.py:79-84).
 
     float32: plain dense attention. bfloat16: `impl`, or the environment
-    variable PF_ATTN_IMPL, or "einsum". "pallas" launches the hand-written
-    attention kernel (ops/vit_attention.py; its plain twin on CPU tensors);
-    anything else runs the JAX einsum contract in plain torch ops
+    variable PF_ATTN_IMPL. "pallas" launches the hand-written attention
+    kernel (ops/vit_attention.py; its plain twin on CPU tensors), and
+    "einsum" runs the JAX einsum contract in plain torch ops
     (vit_attention_plain): bf16 logits of (q * scale) k^T, bf16 s - m, f32
     exp, bf16 probabilities, f32 normaliser applied after the f32
-    probability-value product.
+    probability-value product. Unset, the call takes the kernel where no
+    gradient has to pass through it, and the einsum path where one does
+    (grad mode on and q, k or v requiring grad): the kernel has no
+    backward. Both compute the one function; on the CPU they are the same
+    ops, bit for bit.
     """
     if q.dtype != torch.bfloat16:
         scale = q.shape[-1] ** -0.5
         logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
         probs = torch.softmax(logits, dim=-1)
         return torch.einsum("bhnm,bmhd->bnhd", probs, v)
-    impl = impl or os.environ.get("PF_ATTN_IMPL", "einsum")
+    impl = impl or os.environ.get("PF_ATTN_IMPL")
+    if impl is None:
+        impl = "einsum" if carries_grad(q, k, v) else "pallas"
     if impl == "pallas":
         return vit_attention(q, k, v)
     return vit_attention_plain(q, k, v)

@@ -28,9 +28,10 @@ to the twin. `LAUNCHES["vit_attention"]` counts the kernel's launches.
 The kernel has no backward, and neither has the TPU kernel (no custom VJP
 in pallas_attention.py). So a call that would have to carry a gradient
 (grad mode on and an input that requires grad) raises, on either device,
-naming PF_ATTN_IMPL: training a DINOv2 branch runs on the default einsum
-path. The frozen branches of fusion training run without grad and launch
-the kernel as inference does.
+naming PF_ATTN_IMPL. `models/dinov2.fused_attention` sends such a call to
+the einsum path by default, so training a DINOv2 branch runs there;
+inference and the frozen branches of fusion training run without grad and
+launch the kernel.
 """
 
 from __future__ import annotations
@@ -118,9 +119,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                 f"strides {t.stride()}")
 
 
+def carries_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether a gradient would have to pass through an attention call on
+    q, k and v: grad mode on and an input that requires grad."""
+    return torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             round_logits: bool, round_diff: bool) -> torch.Tensor:
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+    if carries_grad(q, k, v):
         raise RuntimeError(
             "the attention kernel (PF_ATTN_IMPL=pallas) has no backward: "
             "a gradient through it was asked for. Train with PF_ATTN_IMPL "

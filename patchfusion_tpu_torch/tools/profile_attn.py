@@ -1,9 +1,10 @@
 """Attention shoot-out at the fine branch's shapes (the port of the JAX
-package's tools/profile_attn.py): the bf16 einsum form the model runs by
-default (models/dinov2.fused_attention), torch's
-scaled_dot_product_attention as the library's reference, and the port's
-attention kernel (csrc/vit_attention.cu, the PF_ATTN_IMPL=pallas route,
-hence the rows' JAX names) in its three roundings: vit_attention
+package's tools/profile_attn.py): the bf16 einsum form
+(models/dinov2.fused_attention with PF_ATTN_IMPL=einsum, the route of a
+call that carries a gradient), torch's scaled_dot_product_attention as the
+library's reference, and the port's attention kernel
+(csrc/vit_attention.cu, the model's route without a gradient and the
+PF_ATTN_IMPL=pallas route, hence the rows' JAX names) in its three roundings: vit_attention
 ("whole-row"), vit_attention_blocked and vit_attention_mxsum (with and
 without bf16_exp), at (B, N, H, Dh) = (16, 1037, 16, 64), the vitl
 tile-chunk shape, by default. Each row: time, TFLOP/s (4 B H N^2 Dh),

@@ -10,8 +10,9 @@ chunk.
     python -m patchfusion_tpu_torch.tools.profile_infer [--core vitl]
         [--chunk 8] [--dtype bf16] [--iters 10] [--device cuda]
 
-The attention follows PF_ATTN_IMPL (default einsum; `pallas` launches the
-attention kernel); the FLOP count is the same either way (_bench_util).
+The attention follows PF_ATTN_IMPL (unset or `pallas`, the attention
+kernel; `einsum`, the einsum path); the FLOP count is the same either way
+(_bench_util).
 Prints one row per stage, then one JSON line with the rows, the card's
 nvidia-smi name and power limit and the torch version.
 """

@@ -10,11 +10,13 @@ floors: depth x (the per-layer floor + the attention).
     python -m patchfusion_tpu_torch.tools.profile_trunk [--core vitl]
         [--batch 16] [--inner 10] [--device cuda]
 
-The attention is measured here, three ways: the einsum form the model runs
-by default (models/dinov2.fused_attention, bf16 probabilities), the port's
-attention kernel (PF_ATTN_IMPL=pallas; its plain twin on the CPU) and
-torch's scaled_dot_product_attention as the library's reference; the
-trunk floor is printed with each of the port's two. bf16 throughout, as
+The attention is measured here, three ways: the einsum form
+(models/dinov2.fused_attention with PF_ATTN_IMPL=einsum, bf16
+probabilities; the route of a call that carries a gradient), the port's
+attention kernel (the model's route without a gradient, and
+PF_ATTN_IMPL=pallas; its plain twin on the CPU) and torch's
+scaled_dot_product_attention as the library's reference; the trunk floor
+is printed with each of the port's two. bf16 throughout, as
 the main path runs. Prints the rows, then one JSON line with them, the
 card's nvidia-smi name and power limit and the torch version.
 """

@@ -19,9 +19,9 @@ raises where CUDA is missing) and the fusion CLI's launcher flags
 environment): data parallel over ranks as the JAX package's data mesh
 (tools/train_branch.py there), each rank on its ShardedSampler shard,
 SILog over the global batch, the gradients averaged across the ranks,
-rank 0 writing the weights. The DINOv2 attention runs on the default
-einsum path: the attention kernel (PF_ATTN_IMPL=pallas) has no backward
-and raises under a gradient.
+rank 0 writing the weights. The DINOv2 attention runs on the einsum
+path, the default route of a call that carries a gradient: the attention
+kernel (PF_ATTN_IMPL=pallas) has no backward and raises under one.
 """
 
 from __future__ import annotations

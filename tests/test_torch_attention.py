@@ -106,7 +106,7 @@ def test_plain_rounds_as_mxsum_bf16_exp(shape):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plain_is_the_einsum_attention(shape):
     """vit_attention_plain (both roundings on) is the JAX einsum path's function
-    and the port's default bf16 attention."""
+    and, on the CPU, the port's bf16 attention on every route."""
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(shape, seed=1))
     want = np.asarray(jax_dinov2.fused_attention(jq, jk, jv, impl="einsum"),
                       np.float32)
@@ -155,6 +155,73 @@ def test_float32_attention_ignores_the_variable(monkeypatch):
     np.testing.assert_allclose(dense.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def _route_recorder(monkeypatch):
+    """Records, in models.dinov2's namespace, which of the two attention
+    functions each fused_attention call reaches, and runs it."""
+    seen = []
+    for name in ("vit_attention", "vit_attention_plain"):
+        def recorder(*args, _fn=getattr(dinov2, name), _name=name):
+            seen.append(_name)
+            return _fn(*args)
+        monkeypatch.setattr(dinov2, name, recorder)
+    return seen
+
+
+# (PF_ATTN_IMPL, grad mode, q, k and v require grad) -> the function reached
+ROUTES = [
+    (None, False, False, "vit_attention"),       # inference
+    (None, True, False, "vit_attention"),        # frozen weights, grad on
+    (None, False, True, "vit_attention"),        # no_grad over trainables
+    (None, True, True, "vit_attention_plain"),   # training: a gradient
+    ("einsum", False, False, "vit_attention_plain"),
+    ("einsum", True, True, "vit_attention_plain"),
+    ("pallas", False, False, "vit_attention"),
+]
+
+
+@pytest.mark.parametrize("impl,grad_mode,requires_grad,route", ROUTES)
+def test_bf16_route(monkeypatch, impl, grad_mode, requires_grad, route):
+    """bf16 attention takes the kernel's wrapper unless a gradient has to
+    pass through the call (grad mode on and an input requiring grad) or
+    PF_ATTN_IMPL=einsum says otherwise; the result is the einsum path's bit
+    for bit (the wrapper returns its twin on the CPU), and the einsum route
+    carries the gradient."""
+    if impl is None:
+        monkeypatch.delenv("PF_ATTN_IMPL", raising=False)
+    else:
+        monkeypatch.setenv("PF_ATTN_IMPL", impl)
+    seen = _route_recorder(monkeypatch)
+    qkv = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 37, 3, 2, 16)).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].clone().requires_grad_(requires_grad)
+               for i in range(3))
+    with torch.set_grad_enabled(grad_mode):
+        out = dinov2.fused_attention(q, k, v)
+    assert seen == [route]
+    assert torch.equal(out.detach(), va.vit_attention_plain(
+        q.detach(), k.detach(), v.detach()))
+    if out.requires_grad:
+        out.float().sum().backward()
+        assert all(x.grad is not None and x.grad.dtype == torch.bfloat16
+                   for x in (q, k, v))
+
+
+@pytest.mark.parametrize("grad_mode", [False, True])
+def test_float32_attention_is_dense_on_every_route(monkeypatch, grad_mode):
+    """float32 attention, with PF_ATTN_IMPL unset, with or without grad
+    mode, reaches neither bf16 function: it is dense attention."""
+    monkeypatch.delenv("PF_ATTN_IMPL", raising=False)
+    q, k, v = (torch.from_numpy(a).requires_grad_(grad_mode)
+               for a in _qkv((1, 20, 2, 16), seed=4))
+    seen = _route_recorder(monkeypatch)
+    with torch.set_grad_enabled(grad_mode):
+        got = dinov2.fused_attention(q, k, v)
+    assert seen == []
+    logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * 16 ** -0.5
+    want = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(logits, -1), v)
+    assert torch.equal(got, want)
+
+
 def _generic_interpreter(monkeypatch):
     """Run the JAX package's Pallas kernels in Pallas' generic interpreter
     (interpret=True, as tests/test_pallas_head.py does) for the model-level
@@ -195,6 +262,45 @@ def test_dinovit_pallas_matches_jax(tiny, monkeypatch):
             <= BF16_TOL
         assert rel_err(gc.float().numpy(), np.asarray(wc, np.float32)) \
             <= BF16_TOL
+
+
+@pytest.mark.parametrize("grad_mode", [False, True])
+def test_dinovit_default_route_is_the_einsum_bitwise(tiny, monkeypatch,
+                                                     grad_mode):
+    """The vitmicro DinoViT in bf16 with PF_ATTN_IMPL unset is bitwise the
+    same forward as with PF_ATTN_IMPL=einsum (every bf16 call's route
+    before the kernel became the default): without grad each block's
+    attention reaches the kernel's wrapper (its twin here), with grad and
+    trainable weights the einsum path, and the gradient flows."""
+    cfg, var, net, _ = tiny
+    vit = net.coarse_branch.core.core.pretrained
+    image = nchw(np.random.default_rng(11).random((2, 42, 56, 3),
+                                                  dtype=np.float32),
+                 torch.bfloat16)
+    monkeypatch.setenv("PF_ATTN_IMPL", "einsum")
+    with torch.no_grad():
+        want = vit(image)
+    monkeypatch.delenv("PF_ATTN_IMPL")
+    seen = _route_recorder(monkeypatch)
+    params = {p: p.requires_grad for p in vit.parameters()}
+    for p in params:
+        p.requires_grad_(grad_mode)
+    try:
+        with torch.set_grad_enabled(grad_mode):
+            got = vit(image)
+        route = "vit_attention_plain" if grad_mode else "vit_attention"
+        assert seen == [route] * len(vit.blocks)
+        for (gt, gc), (wt, wc) in zip(got, want):
+            assert torch.equal(gt.detach(), wt)
+            assert torch.equal(gc.detach(), wc)
+        if grad_mode:
+            sum(t.float().sum() for t, _ in got).backward()
+            qkv = vit.blocks[0].attn.qkv.weight
+            assert qkv.grad is not None and bool(qkv.grad.abs().sum() > 0)
+    finally:
+        for p, was in params.items():
+            p.grad = None
+            p.requires_grad_(was)
 
 
 def test_engine_m1_pallas_matches_jax(tiny, monkeypatch):

@@ -562,6 +562,169 @@ def test_attention_kernel_raises_under_grad(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [16, 49])
+def test_attention_kernel_at_the_vits_batches(cuda, b):
+    """The kernel against its twin at DINOv2-S's 6 heads and the batches
+    its cells run (16 tiles in one pass, 49 in one pass), N = 1037 and
+    Dh = 64 through the qkv views: the bound of
+    test_attention_kernel_matches_twin, one launch."""
+    q, k, v = _qkv(np.random.default_rng(b), b, 1037, 6, 64, cuda)
+    before = vit_attention.LAUNCHES["vit_attention"]
+    got = vit_attention.vit_attention(q, k, v)
+    ref = vit_attention.vit_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    assert (got.float() - ref.float()).abs().max().item() <= 1e-2
+    assert vit_attention.LAUNCHES["vit_attention"] == before + 1
+
+
+def _parent_fused_attention(q, k, v, impl=None):
+    """models/dinov2.fused_attention before the kernel became the default
+    bf16 route: dense in f32; in bf16 the einsum path unless "pallas" is
+    asked for."""
+    import os
+
+    if q.dtype != torch.bfloat16:
+        logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * q.shape[-1] ** -0.5
+        probs = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhnm,bmhd->bnhd", probs, v)
+    if (impl or os.environ.get("PF_ATTN_IMPL", "einsum")) == "pallas":
+        return vit_attention.vit_attention(q, k, v)
+    return vit_attention.vit_attention_plain(q, k, v)
+
+
+def _tiny_bf16_model():
+    import chip_smoke
+    from patchfusion_tpu_torch.api import PatchFusion
+
+    model = PatchFusion.from_config(chip_smoke.tiny_config(), device="cuda",
+                                    dtype=torch.bfloat16, seed=0)
+    blocks = [len(branch.core.core.pretrained.blocks) for branch in
+              (model.net.coarse_branch, model.net.fine_branch)]
+    return model, blocks
+
+
+@pytest.mark.cuda
+def test_request_runs_the_attention_kernel_by_default(cuda, monkeypatch):
+    """A warm seeded tiny m2 request with PF_ATTN_IMPL unset launches the
+    attention kernel once per DINOv2 block of the coarse pass and of each
+    chunk's fine pass (the tracer's launches.vit_attention: blocks x (1 +
+    chunks)); its depth is within chip_smoke's PATH_TOL of the same
+    request with PF_ATTN_IMPL=einsum, which launches none."""
+    import chip_smoke
+    from patchfusion_tpu_torch.utils import profiling
+
+    model, blocks = _tiny_bf16_model()
+    lr, hr = _tiny_images()
+    depths, counters = {}, {}
+    for impl in (None, "einsum"):
+        if impl is None:
+            monkeypatch.delenv("PF_ATTN_IMPL", raising=False)
+        else:
+            monkeypatch.setenv("PF_ATTN_IMPL", impl)
+        model.infer(lr, hr, cai_mode="m2", process_num=2)  # warm
+        profiling.enable()
+        try:
+            depths[impl] = model.infer(lr, hr, cai_mode="m2", process_num=2)
+            (rec,) = profiling.records()
+        finally:
+            profiling.disable()
+            profiling.clear()
+        counters[impl] = rec["counters"]
+    chunks = counters[None]["chunks"]
+    assert chunks == 5
+    assert counters[None]["launches.vit_attention"] \
+        == blocks[0] + chunks * blocks[1]
+    assert counters["einsum"]["launches.vit_attention"] == 0
+    ref = depths["einsum"]
+    rel = float(np.abs(depths[None] - ref).max() / np.abs(ref).max())
+    assert rel <= chip_smoke.PATH_TOL, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["m1", "m2"])
+def test_einsum_variable_keeps_the_parent_route(cuda, monkeypatch, mode):
+    """PF_ATTN_IMPL=einsum gives the depth of the dispatch before the
+    kernel became the default, bit for bit, and launches no attention
+    kernel."""
+    from patchfusion_tpu_torch.models import dinov2
+
+    model, _ = _tiny_bf16_model()
+    lr, hr = _tiny_images()
+    monkeypatch.setenv("PF_ATTN_IMPL", "einsum")
+    before = vit_attention.LAUNCHES["vit_attention"]
+    got = model.infer(lr, hr, cai_mode=mode, process_num=2)
+    monkeypatch.delenv("PF_ATTN_IMPL")
+    monkeypatch.setattr(dinov2, "fused_attention", _parent_fused_attention)
+    want = model.infer(lr, hr, cai_mode=mode, process_num=2)
+    assert vit_attention.LAUNCHES["vit_attention"] == before
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_branch_step_launches_no_attention_kernel(cuda, monkeypatch):
+    """Branch pretraining on the card with PF_ATTN_IMPL unset: one coarse
+    step of the tiny branch as the branch CLI runs it (f32), and the
+    forward of its DINOv2 backbone in bf16 with trainable weights (every
+    attention bf16 and carrying a gradient). Neither launches the
+    attention kernel, and the step's loss and the backbone's outputs are
+    those of the dispatch before the kernel became the default, bit for
+    bit. The f32 step is a control: fused_attention sends every f32 call
+    to dense attention before the bf16 route is chosen, so it holds
+    whatever that route does. The bf16 forward is what checks the rule
+    that a gradient-carrying call takes the einsum path. Its backward is
+    not taken: the einsum path's f32-output bmm
+    (`torch.bmm(..., out_dtype=)`) has no derivative on the card, at the
+    parent as here."""
+    import chip_smoke
+    from patchfusion_tpu_torch.api import BaselinePretrain
+    from patchfusion_tpu_torch.engine import training
+    from patchfusion_tpu_torch.models import dinov2
+    from patchfusion_tpu_torch.models.builder import build_zoedepth_branch
+
+    monkeypatch.delenv("PF_ATTN_IMPL", raising=False)
+    bcfg = chip_smoke.tiny_config()["coarse_branch"]
+    weights = BaselinePretrain(
+        bcfg, 1e-3, 80.0, target="coarse", image_raw_shape=(84, 112),
+        patch_split_num=(2, 2), patch_process_shape=(42, 56), device="cpu",
+        seed=3).net.state_dict()
+    rng = np.random.default_rng(4)
+    batch = {"image_lr": rng.random((2, 42, 56, 3), dtype=np.float32),
+             "depth_gt": rng.random((2, 42, 56, 1), dtype=np.float32) * 40
+             + 1}
+    image = torch.from_numpy(batch["image_lr"]).to(cuda).permute(0, 3, 1, 2)
+    vit = build_zoedepth_branch(bcfg, 1e-3, 80.0, dtype=torch.bfloat16,
+                                device="cuda")
+    vit.load_state_dict(weights)
+    vit = vit.core.core.pretrained.requires_grad_(True)
+
+    def step():
+        branch = build_zoedepth_branch(bcfg, 1e-3, 80.0, device="cuda")
+        branch.load_state_dict(weights)
+        state = training.create_branch_state(
+            branch, training.make_onecycle_optimizer(1e-4, 10))
+        tb = training.to_device_batch(batch, cuda, ("image_lr", "depth_gt"))
+        logs = training.make_branch_train_step("coarse", 1e-3, 80.0)(
+            state, tb)
+        return float(logs["total_loss"])
+
+    def backbone():
+        taps = [x for tap in vit(image.to(torch.bfloat16)) for x in tap]
+        assert all(x.requires_grad for x in taps)
+        return [x.detach() for x in taps]
+
+    before = vit_attention.LAUNCHES["vit_attention"]
+    got_loss, got_taps = step(), backbone()
+    torch.cuda.synchronize()
+    assert vit_attention.LAUNCHES["vit_attention"] == before
+    monkeypatch.setattr(dinov2, "fused_attention", _parent_fused_attention)
+    want_loss, want_taps = step(), backbone()
+    assert np.isfinite(got_loss) and got_loss == want_loss, (got_loss,
+                                                             want_loss)
+    assert all(torch.equal(g, w) for g, w in zip(got_taps, want_taps))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_world_one_batchnorm_and_silog_unchanged(cuda, dtype):
     """Without a process group, FlaxBatchNorm2d's train mode and SILogLoss
